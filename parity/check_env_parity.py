@@ -1,7 +1,7 @@
 """FULL env.step parity: JAX engine (float64, CPU) vs the C++ oracle.
 
 Extends parity/check_physics_parity.py from the physics kernel to the
-WHOLE normative step pipeline (gym_futbol_tpu/env.py STEP ORDER): action
+WHOLE normative step pipeline (gym_futbol_jax/env.py STEP ORDER): action
 decode, possession bids, pass/shoot kicks, dribble carry, goals, OOB
 clamp, shaped rewards, kickoff re-placement, clock and fused auto-reset.
 
@@ -11,8 +11,10 @@ noise from the state's key. This harness replicates the exact key-split
 draws to the oracle, so both implementations are deterministic functions
 of (state, actions, draws) and must agree to float64 roundoff.
 
-Run:  python parity/check_env_parity.py     (forces CPU x64 itself)
-Exits 0 on pass.
+Run:  python parity/check_env_parity.py     (CPU, float64)
+Exits 0 on pass. :func:`batch_parity` is the same comparison on a batch of
+random states stepped at once on whatever device JAX uses (chip_smoke.py
+runs it on the GPU).
 """
 
 from __future__ import annotations
@@ -22,27 +24,19 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["JAX_ENABLE_X64"] = "1"
-
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_enable_x64", True)
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from gym_futbol_tpu import env as env_core  # noqa: E402
-from gym_futbol_tpu.types import (  # noqa: E402
+from gym_futbol_jax import env as env_core  # noqa: E402
+from gym_futbol_jax.types import (  # noqa: E402
     EnvParams,
     EnvState,
     RewardConfig,
 )
-from gym_futbol_tpu.utils.cache import enable_compilation_cache  # noqa: E402
 from native.build import load_oracle, oracle_env_step  # noqa: E402
 
-enable_compilation_cache()
+TOL = 1e-9  # float64 max abs error, every state field and reward
 
 
 def striker_actions(pos, possession, params, rng):
@@ -129,7 +123,99 @@ def run_case(lib, params: EnvParams, seed: int, n_steps: int,
     return max_err, goals, dones
 
 
+def random_states(key, params: EnvParams, n: int, dtype=jnp.float64):
+    """``n`` random mid-game states and joint actions: bodies anywhere on
+    (and a little beyond) the field, velocities up to half max speed,
+    any owner, scores, clocks (a quarter one step from the time limit).
+    One state in eight has a loose ball shooting into a goal mouth."""
+    nb, npl = params.n_bodies, params.n_players
+    k = jax.random.split(key, 8)
+    scale = jnp.asarray([params.width, params.height], dtype)
+    pos = jax.random.uniform(k[0], (n, nb, 2), dtype, -0.02, 1.02) * scale
+    vel = jax.random.uniform(k[1], (n, nb, 2), dtype, -0.5, 0.5)
+    vel = vel * params.max_speed
+    poss = jax.random.randint(k[2], (n,), 0, npl + 1)
+    t = jax.random.randint(k[3], (n,), 0, params.max_steps)
+    idx = jnp.arange(n)
+    t = jnp.where(idx % 4 == 0, params.max_steps - 1, t)
+    # shots: ball 5 units inside a goal line, in the mouth, flying out
+    right = idx % 16 == 1
+    shot = right | (idx % 16 == 9)
+    mouth_y = params.height / 2 + (pos[:, 0, 1] / params.height - 0.5) * (
+        params.goal_size / 2)
+    ball_pos = jnp.stack([jnp.where(right, params.width - 5.0, 5.0),
+                          mouth_y], axis=-1)
+    ball_vel = jnp.stack([jnp.where(right, 1.0, -1.0) * params.max_speed / 2,
+                          jnp.zeros_like(mouth_y)], axis=-1)
+    pos = pos.at[:, 0].set(jnp.where(shot[:, None], ball_pos, pos[:, 0]))
+    vel = vel.at[:, 0].set(jnp.where(shot[:, None], ball_vel, vel[:, 0]))
+    poss = jnp.where(shot, 0, poss)
+    state = EnvState(
+        pos=pos, vel=vel,
+        possession=jnp.where(poss == 0, -1, poss).astype(jnp.int32),
+        score=jax.random.randint(k[4], (n, 2), 0, 3, jnp.int32),
+        t=t.astype(jnp.int32),
+        key=jax.random.split(k[5], n),
+    )
+    actions = jax.random.randint(k[6], (n, npl, 2), 0, 5, jnp.int32)
+    return state, actions
+
+
+def batch_parity(lib, params: EnvParams, n_states: int, seed: int = 0
+                 ) -> dict:
+    """Step ``n_states`` random states once, all at once, with the jnp
+    ``env.step(auto_reset=True)`` in float64 on JAX's default device, and
+    each with the oracle on the host from the same state, actions and
+    draws. Needs ``jax_enable_x64``. Returns the max abs error over every
+    field and the goals and dones exercised."""
+    n = params.n_bodies
+    state, actions = random_states(jax.random.PRNGKey(seed), params,
+                                   n_states)
+    step = jax.jit(jax.vmap(
+        lambda s, a: env_core.step(s, a, params, auto_reset=True)
+    ))
+
+    def draws(key):
+        k_kick, k_kickoff, _ = jax.random.split(key, 3)
+        theta = jax.random.normal(k_kick, (), jnp.float64) * params.kick_noise
+        noise = jax.random.uniform(k_kickoff, (n, 2), jnp.float64, -1.0, 1.0)
+        return theta, noise
+
+    st2, out = step(state, actions)
+    theta, noise = jax.jit(jax.vmap(draws))(state.key)
+    assert st2.pos.dtype == jnp.float64, "batch_parity needs jax_enable_x64"
+    host = jax.device_get((state, actions, st2, out, theta, noise))
+    state, actions, st2, out, theta, noise = host
+    max_err = 0.0
+    for i in range(n_states):
+        pos, vel, poss, score, t, reward, done = oracle_env_step(
+            lib, state.pos[i], state.vel[i], int(state.possession[i]),
+            state.score[i], int(state.t[i]), actions[i], float(theta[i]),
+            noise[i], params, auto_reset=True,
+        )
+        err = max(
+            np.abs(st2.pos[i] - pos).max(),
+            np.abs(st2.vel[i] - vel).max(),
+            np.abs(out.team_reward[i] - reward).max(),
+            abs(int(st2.possession[i]) - poss),
+            np.abs(st2.score[i] - score).max(),
+            abs(int(st2.t[i]) - t),
+            abs(int(bool(out.done[i])) - int(done)),
+        )
+        max_err = max(max_err, float(err))
+    return {
+        "max_err": max_err,
+        "goals": int(np.asarray(out.info["goal"]).sum()),
+        "dones": int(np.asarray(out.done).sum()),
+    }
+
+
 def main() -> int:
+    from gym_futbol_jax.utils.cache import enable_compilation_cache
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    enable_compilation_cache()
     lib = load_oracle()
     cases = [
         ("1v1 striker", EnvParams(players_per_team=1, max_steps=80), 200, True),
@@ -175,10 +261,10 @@ def main() -> int:
             worst = max(worst, e)
             goals += gseen
             dones += dseen
-        ok = worst < 1e-9
+        ok = worst < TOL
         failures += 0 if ok else 1
         print(f"{'OK ' if ok else 'FAIL'} {name}: max err {worst:.3e} "
-              f"(gate 1e-9) over {steps} steps x3 seeds; "
+              f"(gate {TOL:g}) over {steps} steps x3 seeds; "
               f"events: {goals} goals, {dones} dones")
         if goals == 0 and "striker" in name:
             print(f"WARN {name}: no goals exercised")

@@ -1,46 +1,34 @@
-"""End-to-end LEARNING gate: short self-play PPO runs on the real chip
-must produce policies that beat a random opponent, across seeds.
+"""End-to-end LEARNING gate: short self-play PPO runs must produce
+policies that beat a random opponent, across seeds.
 
 This is the product claim of an RL framework — metrics flowing and loss
-decreasing are necessary but not sufficient. Round-3 hardening (VERDICT
-r2 item 2): the gate now
+decreasing are necessary but not sufficient. The gate
 
 - trains ``--seeds`` independent seeds (default 3) and requires the MEAN
-  trained-vs-random win rate >= ``--win-threshold`` (default 0.70, up
-  from r2's single-seed 0.6 that passed by 1.8%);
-- evaluates on the policy-in-kernel fused path (``evaluate_fused`` with
-  the :func:`ops.fused_collect.actor_critic_policy_weights` adapter —
-  VERDICT r2 item 3) over ``--eval-envs`` full episodes (default 4096;
-  binomial std ~0.7%), with a one-off fused-vs-jnp consistency check on
-  seed 0;
+  trained-vs-random win rate >= ``--win-threshold`` (default 0.70);
+- evaluates with ``evaluate.evaluate`` (the jnp joint-policy rollout)
+  over ``--eval-envs`` full episodes (default 4096; binomial std ~0.7%);
 - checks MONOTONICITY: the final policy must beat the policy
   checkpointed at 1/3 of training, head-to-head, for every seed;
 - writes per-iteration learning curves to
-  ``parity/artifacts/learning_curve_seed{K}.jsonl``.
+  ``parity/artifacts/learning_curve_ppt{P}_seed{K}.jsonl``;
+- after all seeds train, plays a trained-vs-trained cross-seed
+  ROUND-ROBIN (league table in the output JSON and
+  ``parity/artifacts/league_ppt{P}.json``) — evidence the seeds learned
+  comparable, non-degenerate play, not just anything-beats-random.
 
-Round-4 hardening (VERDICT r3 items 1-2): the gate is parameterized over
-team size (``--ppt``) so the SAME end-to-end certification — fused
-collect + fused update training, fused-evaluator win gate, monotonicity,
-committed curves — runs at the flagship BASELINE config scales:
-``--ppt 3`` trains at 16384 envs (config 4) and ``--ppt 5`` at 65536
-envs (config 5). And after all seeds train, a trained-vs-trained
-cross-seed ROUND-ROBIN runs on the fused evaluator (league table in the
-output JSON and ``parity/artifacts/league_ppt{P}.json``) — evidence the
-seeds learned comparable, non-degenerate play, not just
-anything-beats-random.
+``--ppt 3`` trains at 16384 envs (bench config 4 scale) and ``--ppt 5`` at
+65536 envs (config 5 scale). Hyperparameters are recorded in the output
+JSON.
 
-Hyperparameters (lr anneal to 0, ent_coef) are recorded in the output
-JSON; tuning history lives in BASELINE.md.
-
-Run (TPU):  python parity/check_learning.py [--ppt {2,3,5}]
-Options:    --seeds N --iters N --envs B --win-threshold W --jnp-collect
+Run:      python parity/check_learning.py [--ppt {2,3,5}]
+Options:  --seeds N --iters N --envs B --win-threshold W --normalize
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 import time
@@ -49,27 +37,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-from gym_futbol_tpu import EnvParams  # noqa: E402
-from gym_futbol_tpu.evaluate import (  # noqa: E402
-    evaluate,
-    evaluate_fused,
-    uniform_random_weights_like,
-)
-from gym_futbol_tpu.models.policy import ActorCritic, make_policy_fn  # noqa: E402
-from gym_futbol_tpu.ops.fused_collect import (  # noqa: E402
-    actor_critic_policy_weights,
-)
-from gym_futbol_tpu.ppo import (  # noqa: E402
+from gym_futbol_jax import EnvParams  # noqa: E402
+from gym_futbol_jax.evaluate import evaluate  # noqa: E402
+from gym_futbol_jax.models.policy import ActorCritic, make_policy_fn  # noqa: E402
+from gym_futbol_jax.ppo import (  # noqa: E402
     PPOConfig,
     collect_rollout,
-    collect_rollout_fused,
     init_runner,
     make_optimizer,
     train_iteration,
 )
-from gym_futbol_tpu.utils.cache import enable_compilation_cache  # noqa: E402
-
-enable_compilation_cache()
+from gym_futbol_jax.utils.cache import enable_compilation_cache  # noqa: E402
 
 ART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
 
@@ -102,13 +80,11 @@ def train_one_seed(seed, args, env_params, cfg, model, tx, step_fn):
     return snap(runner), snap_third, curve
 
 
-# Per-team-size defaults: env counts are the BASELINE config scales
-# (§ eval configs 3-5); iteration budgets recorded in BASELINE.md tuning
-# history.
+# Per-team-size defaults: env counts are the bench config scales.
 PPT_DEFAULTS = {
     2: {"envs": 8192, "iters": 500},
-    3: {"envs": 16384, "iters": 500},   # BASELINE config 4 scale
-    5: {"envs": 65536, "iters": 500},   # BASELINE config 5 scale
+    3: {"envs": 16384, "iters": 500},   # bench config 4 scale
+    5: {"envs": 65536, "iters": 500},   # bench config 5 scale
 }
 
 
@@ -126,25 +102,16 @@ def main() -> int:
     ap.add_argument("--win-threshold", type=float, default=0.70)
     ap.add_argument("--eval-envs", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=0, help="base seed")
-    ap.add_argument("--jnp-collect", action="store_true",
-                    help="use the jit+vmap collect instead of the Pallas "
-                         "fused-collect kernel (e.g. on CPU)")
     ap.add_argument("--normalize", action="store_true",
                     help="train WITH VecNormalize semantics end-to-end "
-                         "(obs z-scoring folded into the first layer + "
-                         "reward-by-return-std scaling) through the fused "
-                         "collect/update kernels (or the in-loop jnp "
-                         "twin with --jnp-collect) — the end-to-end "
-                         "certification that the normalized path LEARNS, "
-                         "not just that its grads match (VERDICT r4 "
-                         "item 3)")
-    ap.add_argument("--jnp-eval", action="store_true",
-                    help="evaluate on the jnp joint-policy path instead "
-                         "of the fused kernel (e.g. on CPU)")
+                         "(obs z-scoring + reward-by-return-std scaling; "
+                         "ppo.make_normalized_collect) — the end-to-end "
+                         "certification that the normalized path LEARNS")
     ap.add_argument("--no-league", action="store_true",
                     help="skip the trained-vs-trained round-robin")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args()
+    enable_compilation_cache()
 
     defaults = PPT_DEFAULTS.get(args.ppt, PPT_DEFAULTS[2])
     if args.envs is None:
@@ -160,43 +127,16 @@ def main() -> int:
         n_players=env_params.players_per_team, hidden=tuple(args.hidden)
     )
     tx = make_optimizer(cfg, total_iters=args.iters)
-    collect_fn = collect_rollout if args.jnp_collect else collect_rollout_fused
-    update_fn = None
-    if not args.jnp_collect:
-        # the Pallas fused-update kernel (bf16 matmuls) is the production
-        # config-5 path; passing the learning gate on it is the
-        # end-to-end certification that its gradients train
-        from gym_futbol_tpu.ppo import update_epochs_fused as update_fn
+    collect_fn = collect_rollout
     if args.normalize:
-        if args.jnp_collect:
-            from gym_futbol_tpu.ppo import make_normalized_collect
+        from gym_futbol_jax.ppo import make_normalized_collect
 
-            collect_fn = make_normalized_collect()
-        else:
-            # stats folded into the first Dense layer for the kernels;
-            # update_epochs_fused reads traj.norm and folds the same way
-            from gym_futbol_tpu.ppo import make_fused_normalized_collect
-
-            collect_fn = make_fused_normalized_collect()
+        collect_fn = make_normalized_collect()
     step_fn = jax.jit(
         lambda r: train_iteration(
             r, model, env_params, cfg, tx, collect_fn=collect_fn,
-            update_fn=update_fn,
         )
     )
-
-    from gym_futbol_tpu.ppo import _obs_norm_scales, fold_obs_norm
-
-    def fused_weights(snap):
-        """(params, obs_norm) -> policy-only kernel weights; --normalize
-        folds the checkpoint's OWN frozen stats into the first layer
-        (exact — ppo.fold_obs_norm), so the raw-obs kernel evaluates the
-        policy exactly as it acted during normalized training."""
-        params, obs_norm = snap
-        w = actor_critic_policy_weights(params, model)
-        if obs_norm is not None:
-            w = fold_obs_norm(w, *_obs_norm_scales(obs_norm))
-        return w
 
     def jnp_policy(snap):
         params, obs_norm = snap
@@ -206,15 +146,9 @@ def main() -> int:
         return lambda key, obs: policy(key, obs_norm.normalize(obs))
 
     def eval_vs_random(snap, n_envs, seed):
-        if args.jnp_eval:
-            return evaluate(env_params, policy_a=jnp_policy(snap),
-                            n_envs=n_envs,
-                            n_steps=env_params.max_steps, seed=seed)
-        w = fused_weights(snap)
-        return evaluate_fused(
-            env_params, w, uniform_random_weights_like(w),
-            n_envs=n_envs, n_steps=env_params.max_steps, seed=seed,
-        )
+        return evaluate(env_params, policy_a=jnp_policy(snap),
+                        n_envs=n_envs, n_steps=env_params.max_steps,
+                        seed=seed)
 
     os.makedirs(ART_DIR, exist_ok=True)
     t0 = time.perf_counter()
@@ -238,22 +172,13 @@ def main() -> int:
         win = float(res["win_rate_a"])
 
         # monotonicity: final head-to-head vs the 1/3-of-training policy
-        if args.jnp_eval:
-            mono = evaluate(
-                env_params,
-                policy_a=jnp_policy(snap),
-                policy_b=jnp_policy(snap_third),
-                n_envs=args.eval_envs, n_steps=env_params.max_steps,
-                seed=seed + 11,
-            )
-        else:
-            mono = evaluate_fused(
-                env_params,
-                fused_weights(snap),
-                fused_weights(snap_third),
-                n_envs=args.eval_envs, n_steps=env_params.max_steps,
-                seed=seed + 11,
-            )
+        mono = evaluate(
+            env_params,
+            policy_a=jnp_policy(snap),
+            policy_b=jnp_policy(snap_third),
+            n_envs=args.eval_envs, n_steps=env_params.max_steps,
+            seed=seed + 11,
+        )
         mono_ok = float(mono["win_rate_a"]) > float(mono["win_rate_b"])
 
         rec = {
@@ -265,30 +190,14 @@ def main() -> int:
             "third_vs_final_win": round(float(mono["win_rate_b"]), 4),
             "monotonic": mono_ok,
         }
-        # one-off adapter consistency: fused vs jnp evaluate on the SAME
-        # trained weights must agree within binomial error (r2 item 3)
-        if k == 0 and not args.jnp_eval:
-            jnp_res = evaluate(
-                env_params, policy_a=jnp_policy(snap),
-                n_envs=1024, n_steps=env_params.max_steps, seed=seed + 7,
-            )
-            jnp_win = float(jnp_res["win_rate_a"])
-            # 4-sigma band on the difference of two binomial estimates
-            p = (win + jnp_win) / 2
-            band = 4.0 * math.sqrt(
-                max(p * (1 - p), 0.01) * (1 / args.eval_envs + 1 / 1024)
-            )
-            rec["jnp_eval_win_rate"] = round(jnp_win, 4)
-            rec["fused_jnp_consistent"] = bool(abs(win - jnp_win) <= band)
         results.append(rec)
         print(f"# seed {seed}: {json.dumps(rec)}", flush=True)
 
     train_s = time.perf_counter() - t0
 
-    # Trained-vs-trained cross-seed round-robin (VERDICT r3 item 2): at
-    # 43M steps/s on the fused evaluator a full league is ~seconds. Each
-    # ordered pair plays once (seed i as team 0 vs seed j as team 1), so
-    # side effects cancel over the table.
+    # Trained-vs-trained cross-seed round-robin: each ordered pair plays
+    # once (seed i as team 0 vs seed j as team 1), so side effects cancel
+    # over the table.
     league = None
     if args.seeds > 1 and not args.no_league:
         league = {"pairs": [], "points": [0.0] * args.seeds}
@@ -296,24 +205,14 @@ def main() -> int:
             for j in range(args.seeds):
                 if i == j:
                     continue
-                if args.jnp_eval:
-                    res = evaluate(
-                        env_params,
-                        policy_a=jnp_policy(final_params[i]),
-                        policy_b=jnp_policy(final_params[j]),
-                        n_envs=args.eval_envs,
-                        n_steps=env_params.max_steps,
-                        seed=9000 + 17 * i + j,
-                    )
-                else:
-                    res = evaluate_fused(
-                        env_params,
-                        fused_weights(final_params[i]),
-                        fused_weights(final_params[j]),
-                        n_envs=args.eval_envs,
-                        n_steps=env_params.max_steps,
-                        seed=9000 + 17 * i + j,
-                    )
+                res = evaluate(
+                    env_params,
+                    policy_a=jnp_policy(final_params[i]),
+                    policy_b=jnp_policy(final_params[j]),
+                    n_envs=args.eval_envs,
+                    n_steps=env_params.max_steps,
+                    seed=9000 + 17 * i + j,
+                )
                 wa, wb = float(res["win_rate_a"]), float(res["win_rate_b"])
                 dr = float(res["draw_rate"])
                 league["pairs"].append({
@@ -335,7 +234,6 @@ def main() -> int:
     mean_win = sum(wins) / len(wins)
     ok = mean_win >= args.win_threshold
     ok &= all(r["monotonic"] for r in results)
-    ok &= all(r.get("fused_jnp_consistent", True) for r in results)
     print(json.dumps({
         "metric": ("normalized_trained_vs_random_win_rate_mean"
                    if args.normalize else "trained_vs_random_win_rate_mean"),

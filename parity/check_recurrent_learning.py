@@ -19,11 +19,7 @@ via ``variables_b``), learning curves committed to
 ``parity/artifacts/recurrent_curve_ppt{P}_{algo}_seed{K}.jsonl``, and an
 optional cross-seed league.
 
-The recurrent path trains on the jnp collect by default (the measured
-faster option at these widths — BASELINE.md r4); pass --fused-collect
-for the LSTM-in-kernel Pallas collect.
-
-Run (TPU):  python parity/check_recurrent_learning.py --algo ppo
+Run:        python parity/check_recurrent_learning.py --algo ppo
             python parity/check_recurrent_learning.py --algo a2c
 CPU smoke:  python parity/check_recurrent_learning.py --algo ppo \
                 --ppt 1 --iters 3 --envs 8 --eval-envs 8 --seeds 1 \
@@ -42,18 +38,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-from gym_futbol_tpu import EnvParams  # noqa: E402
-from gym_futbol_tpu import a2c  # noqa: E402
-from gym_futbol_tpu import recurrent_ppo as rppo  # noqa: E402
-from gym_futbol_tpu.evaluate import evaluate_recurrent  # noqa: E402
-from gym_futbol_tpu.models.recurrent import RecurrentActorCritic  # noqa: E402
-from gym_futbol_tpu.utils.cache import enable_compilation_cache  # noqa: E402
-
-enable_compilation_cache()
+from gym_futbol_jax import EnvParams  # noqa: E402
+from gym_futbol_jax import a2c  # noqa: E402
+from gym_futbol_jax import recurrent_ppo as rppo  # noqa: E402
+from gym_futbol_jax.evaluate import evaluate_recurrent  # noqa: E402
+from gym_futbol_jax.models.recurrent import RecurrentActorCritic  # noqa: E402
+from gym_futbol_jax.utils.cache import enable_compilation_cache  # noqa: E402
 
 ART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
 
-# Tuned per-team-size budgets (BASELINE.md recurrent tuning history).
+# Tuned per-team-size budgets.
 # PPO takes 8 gradient steps per iteration vs A2C's 1, so it needs fewer
 # iterations for the same wall/win; envs follow the MLP 2v2 gate (8192).
 PPT_DEFAULTS = {
@@ -82,11 +76,10 @@ def main() -> int:
     ap.add_argument("--win-threshold", type=float, default=0.70)
     ap.add_argument("--eval-envs", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0, help="base seed")
-    ap.add_argument("--fused-collect", action="store_true",
-                    help="collect on the LSTM-in-kernel Pallas kernel")
     ap.add_argument("--no-league", action="store_true")
     ap.add_argument("--log-every", type=int, default=100)
     args = ap.parse_args()
+    enable_compilation_cache()
 
     defaults = PPT_DEFAULTS.get(args.ppt, PPT_DEFAULTS[2])
     if args.envs is None:
@@ -101,14 +94,12 @@ def main() -> int:
         n_players=env_params.players_per_team, hidden=tuple(args.hidden),
         lstm_size=args.lstm_size,
     )
-    collect_fn = (a2c.collect_recurrent_rollout_fused
-                  if args.fused_collect else None)
     if args.algo == "a2c":
         cfg = a2c.A2CConfig(rollout_steps=args.rollout_steps, lr=args.lr,
                             ent_coef=args.ent_coef)
         tx = a2c.make_optimizer(cfg)
         iteration = lambda r: a2c.train_iteration_recurrent(
-            r, model, env_params, cfg, tx, collect_fn=collect_fn
+            r, model, env_params, cfg, tx
         )
     else:
         cfg = rppo.RecurrentPPOConfig(
@@ -117,7 +108,7 @@ def main() -> int:
         )
         tx = rppo.make_optimizer(cfg, total_iters=args.iters)
         iteration = lambda r: rppo.train_iteration_recurrent_ppo(
-            r, model, env_params, cfg, tx, collect_fn=collect_fn
+            r, model, env_params, cfg, tx
         )
     step_fn = jax.jit(iteration)
 

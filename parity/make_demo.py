@@ -2,19 +2,19 @@
 
 Two phases, mirroring the library's platform split:
 
-  python parity/make_demo.py            # TPU: train 2v2 self-play PPO on
-                                        # the fused kernels (~1-2 min),
+  python parity/make_demo.py            # GPU: train 2v2 self-play PPO,
                                         # save the policy weights .npz
   python parity/make_demo.py --render   # CPU: load the weights, render
                                         # trained-vs-random and
                                         # trained-vs-trained episodes to
                                         # parity/artifacts/*.gif
 
-The render phase uses the jnp twin of the in-kernel policy
-(``ops.fused_actor.mlp_team_policy``) composed through
-``evaluate.joint_policy`` — the same mirrored-perspective convention the
-training and evaluation stacks use. SURVEY.md §2.1 #11 (rendering) is
-the reference row this demo exercises end-to-end.
+The .npz holds the policy layers (torso + logits head) as (W [in, out],
+b [out, 1]) pairs. The render phase rebuilds an ``ActorCritic`` from them
+and plays it through ``evaluate.joint_policy`` — the same
+mirrored-perspective convention the training and evaluation stacks use.
+SURVEY.md §2.1 #11 (rendering) is the reference row this demo exercises
+end-to-end.
 """
 
 from __future__ import annotations
@@ -34,17 +34,15 @@ def train(args) -> None:
     import jax
     import numpy as np
 
-    from gym_futbol_tpu import EnvParams
-    from gym_futbol_tpu.models.policy import ActorCritic
-    from gym_futbol_tpu.ops.fused_collect import actor_critic_policy_weights
-    from gym_futbol_tpu.ppo import (
+    from gym_futbol_jax import EnvParams
+    from gym_futbol_jax.models.policy import ActorCritic
+    from gym_futbol_jax.ppo import (
         PPOConfig,
-        collect_rollout_fused,
         init_runner,
         make_optimizer,
         train_iteration,
     )
-    from gym_futbol_tpu.utils.cache import enable_compilation_cache
+    from gym_futbol_jax.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     env_params = EnvParams(players_per_team=args.ppt)
@@ -56,35 +54,38 @@ def train(args) -> None:
         n_envs=args.envs, tx=tx,
     )
     step = jax.jit(lambda r: train_iteration(
-        r, model, env_params, cfg, tx, collect_fn=collect_rollout_fused
+        r, model, env_params, cfg, tx
     ))
     for it in range(args.iters):
         runner, metrics = step(runner)
         if it % 50 == 0 or it == args.iters - 1:
             print(f"# iter {it:4d} mean_reward "
                   f"{float(metrics['mean_reward']):+.4f}", flush=True)
-    w = actor_critic_policy_weights(runner.params, model)
+    layers = runner.params["params"]
+    w = []
+    for i in range(len(model.hidden) + 1):     # torso + logits head
+        w += [layers[f"Dense_{i}"]["kernel"], layers[f"Dense_{i}"]["bias"][:, None]]
     os.makedirs(ART_DIR, exist_ok=True)
     np.savez(WEIGHTS, *[np.asarray(x) for x in w], ppt=args.ppt)
     print(f"saved policy weights -> {WEIGHTS}")
 
 
 def _recurrent_model(ppt: int):
-    from gym_futbol_tpu.models.recurrent import RecurrentActorCritic
+    from gym_futbol_jax.models.recurrent import RecurrentActorCritic
 
     return RecurrentActorCritic(n_players=ppt, hidden=(128,), lstm_size=128)
 
 
 def train_recurrent(args) -> None:
-    """Train the LSTM policy with recurrent PPO (recurrent_ppo.py) on
-    chip and save the flax variables (SURVEY.md §3.5 MlpLstmPolicy
-    demo)."""
+    """Train the LSTM policy with recurrent PPO (recurrent_ppo.py) and
+    save its variables with ``flax.serialization`` (SURVEY.md §3.5
+    MlpLstmPolicy demo)."""
     import flax.serialization
     import jax
 
-    from gym_futbol_tpu import EnvParams
-    from gym_futbol_tpu import recurrent_ppo as rppo
-    from gym_futbol_tpu.utils.cache import enable_compilation_cache
+    from gym_futbol_jax import EnvParams
+    from gym_futbol_jax import recurrent_ppo as rppo
+    from gym_futbol_jax.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     env_params = EnvParams(players_per_team=args.ppt)
@@ -120,11 +121,11 @@ def render_recurrent(args) -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from gym_futbol_tpu import EnvParams
-    from gym_futbol_tpu.evaluate import joint_policy, random_team_policy
-    from gym_futbol_tpu.models.policy import sample_actions
-    from gym_futbol_tpu.models.recurrent import init_recurrent_params
-    from gym_futbol_tpu.render import render_episode, save_video
+    from gym_futbol_jax import EnvParams
+    from gym_futbol_jax.evaluate import joint_policy, random_team_policy
+    from gym_futbol_jax.models.policy import sample_actions
+    from gym_futbol_jax.models.recurrent import init_recurrent_params
+    from gym_futbol_jax.render import render_episode, save_video
 
     params = EnvParams(players_per_team=args.ppt)
     model = _recurrent_model(args.ppt)
@@ -166,17 +167,25 @@ def render(args) -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from gym_futbol_tpu import EnvParams
-    from gym_futbol_tpu.evaluate import joint_policy, random_team_policy
-    from gym_futbol_tpu.ops.fused_actor import mlp_team_policy
-    from gym_futbol_tpu.render import render_episode, save_video
+    from gym_futbol_jax import EnvParams
+    from gym_futbol_jax.evaluate import joint_policy, random_team_policy
+    from gym_futbol_jax.models.policy import ActorCritic, make_policy_fn
+    from gym_futbol_jax.render import render_episode, save_video
 
     data = np.load(WEIGHTS)
-    arrs = [data[k] for k in data.files if k.startswith("arr_")]
+    arrs = [data[f"arr_{i}"] for i in range(len(data.files) - 1)]
     ppt = int(data["ppt"])
     params = EnvParams(players_per_team=ppt)
-    trained = mlp_team_policy(tuple(jax.numpy.asarray(a) for a in arrs),
-                              params)
+    n = len(arrs) // 2 - 1                     # hidden layers
+    layers = {f"Dense_{i}": {"kernel": arrs[2 * i], "bias": arrs[2 * i + 1][:, 0]}
+              for i in range(n + 1)}
+    # the value head plays no part in acting
+    layers[f"Dense_{n + 1}"] = {"kernel": np.zeros((arrs[-2].shape[0], 1)),
+                                "bias": np.zeros((1,))}
+    model = ActorCritic(n_players=ppt,
+                        hidden=tuple(a.shape[1] for a in arrs[0:-2:2]))
+    trained = make_policy_fn(model, jax.tree.map(jax.numpy.asarray,
+                                                 {"params": layers}))
     for name, opponent in (
         ("demo_trained_vs_random", random_team_policy(params)),
         ("demo_trained_vs_trained", trained),

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_tpu import EnvParams
-from gym_futbol_tpu import a2c
-from gym_futbol_tpu.models.policy import ActorCritic
-from gym_futbol_tpu.parallel import (
+from gym_futbol_jax import EnvParams
+from gym_futbol_jax import a2c
+from gym_futbol_jax.models.policy import ActorCritic
+from gym_futbol_jax.parallel import (
     make_mesh,
     shard_env_state,
     shard_train_iteration,
@@ -59,7 +59,7 @@ class TestA2C:
         import optax
         new_params = optax.apply_updates(runner.params, updates)
 
-        from gym_futbol_tpu.models.policy import (
+        from gym_futbol_jax.models.policy import (
             action_log_prob_and_entropy_packed,
         )
         logits0, _ = model.apply(runner.params, flat.obs)
@@ -80,185 +80,3 @@ class TestA2C:
         # params stay replicated across shards
         p0 = jax.tree.leaves(r2.params)[0]
         assert p0.sharding.is_fully_replicated
-
-
-class TestA2CFeatureMajor:
-    def test_fm_loss_matches_row_major(self, key):
-        """a2c_loss_fm on the fused-collect layout (feature-major obs,
-        (view, step, env)-ordered samples) must equal a2c_loss on the
-        row-major trajectory — loss AND gradients (VERDICT r3 item 6a)."""
-        from gym_futbol_tpu.ppo import _flatten_tm, _obs_to_fm
-
-        model, tx, runner = _setup()
-        runner, traj, last_v = a2c.collect_rollout(runner, model, P, CFG)
-        adv, ret = a2c.compute_gae(traj, last_v, CFG)
-
-        n = traj.reward.shape[0] * traj.reward.shape[1]
-        flat = jax.tree.map(lambda x: x.reshape((n,) + x.shape[2:]), traj)
-        ref_loss, ref_grads = jax.value_and_grad(
-            lambda p: a2c.a2c_loss(p, model, flat, adv.reshape(n),
-                                   ret.reshape(n), CFG)[0]
-        )(runner.params)
-
-        got_loss, got_grads = jax.value_and_grad(
-            lambda p: a2c.a2c_loss_fm(
-                p, model, _obs_to_fm(traj.obs), _flatten_tm(traj.dirs),
-                _flatten_tm(traj.acts), _flatten_tm(adv),
-                _flatten_tm(ret), CFG,
-            )[0]
-        )(runner.params)
-        np.testing.assert_allclose(float(got_loss), float(ref_loss),
-                                   rtol=1e-5)
-        for a, b in zip(jax.tree.leaves(got_grads),
-                        jax.tree.leaves(ref_grads)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-4, atol=1e-6)
-
-    def test_iteration_with_fm_trajectory(self, key):
-        """a2c.train_iteration consumes a feature-major trajectory (the
-        fused-collect shape) end to end: fake the collect by converting a
-        jnp rollout to the kernel's layout."""
-        from gym_futbol_tpu.ppo import _obs_to_fm, collect_rollout
-
-        model, tx, runner = _setup()
-
-        def fm_collect(runner, model, env_params, cfg):
-            runner, traj, last_v = collect_rollout(
-                runner, model, env_params, cfg
-            )
-            return runner, traj.replace(obs=_obs_to_fm(traj.obs)), last_v
-
-        step = jax.jit(lambda r: a2c.train_iteration(
-            r, model, P, CFG, tx, collect_fn=fm_collect
-        ))
-        r2, metrics = step(runner)
-        assert np.isfinite(float(metrics["loss"]))
-        assert any(
-            not np.allclose(np.asarray(a), np.asarray(b))
-            for a, b in zip(jax.tree.leaves(runner.params),
-                            jax.tree.leaves(r2.params))
-        )
-
-
-class TestFusedRecurrent:
-    """LSTM-in-kernel fused recurrent collect (ops/fused_recurrent.py),
-    interpret mode (seed-table uniforms). The on-chip Mosaic twin is
-    certified by parity/check_fused_recurrent.py."""
-
-    def _setup(self, ppt=2, hidden=(32,), lstm=16, max_steps=6):
-        p = EnvParams(players_per_team=ppt, substeps=2,
-                      solver_iterations=3, max_steps=max_steps)
-        from gym_futbol_tpu.models.recurrent import (
-            RecurrentActorCritic, init_recurrent_params,
-        )
-        m = RecurrentActorCritic(n_players=ppt, hidden=hidden,
-                                 lstm_size=lstm)
-        v = init_recurrent_params(jax.random.PRNGKey(0), m, p)
-        return p, m, v
-
-    def test_flattener_matches_flax_cell(self):
-        """One LSTM step through the flat kernel weights == flax cell."""
-        from gym_futbol_tpu.ops.fused_recurrent import (
-            _lstm_cell, flatten_recurrent_actor_critic,
-        )
-
-        p, m, v = self._setup()
-        w = flatten_recurrent_actor_critic(v, m)
-        n_torso = len(m.hidden)
-        wi, wh, bh = w[2 * n_torso], w[2 * n_torso + 1], w[2 * n_torso + 2]
-        B, H = 8, m.lstm_size
-        k1, k2, k3 = jax.random.split(jax.random.PRNGKey(5), 3)
-        x = jax.random.normal(k1, (B, m.hidden[-1]))
-        c = jax.random.normal(k2, (B, H))
-        h = jax.random.normal(k3, (B, H))
-        import flax.linen as nn
-        cell = nn.OptimizedLSTMCell(H)
-        cell_vars = {"params": v["params"]["OptimizedLSTMCell_0"]}
-        (c_ref, h_ref), _ = cell.apply(cell_vars, (c, h), x)
-        c_got, h_got = _lstm_cell(x.T, c.T, h.T, wi, wh, bh, H)
-        np.testing.assert_allclose(np.asarray(c_got.T), np.asarray(c_ref),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(h_got.T), np.asarray(h_ref),
-                                   rtol=1e-5, atol=1e-6)
-
-    def test_kernel_consistent_with_flax_replay(self):
-        """Re-running the flax model over the kernel's emitted obs from
-        the initial carry (resetting at its dones) reproduces its value,
-        taken-action logp, and final carry — the exact recomputation the
-        BPTT update performs."""
-        from gym_futbol_tpu import env as env_core
-        from gym_futbol_tpu.models.policy import (
-            action_log_prob_and_entropy_packed,
-        )
-        from gym_futbol_tpu.models.recurrent import reset_carry_where_done
-        from gym_futbol_tpu.ops import pack_state
-        from gym_futbol_tpu.ops.fused_recurrent import (
-            flatten_recurrent_actor_critic, fused_recurrent_collect,
-        )
-        from gym_futbol_tpu.vector import reset_batch
-
-        p, m, v = self._setup(max_steps=6)   # dones inside the window
-        w = flatten_recurrent_actor_critic(v, m)
-        B, H, T = 128, m.lstm_size, 9
-        st, _ = reset_batch(jax.random.PRNGKey(1), p, B)
-        sf, si = pack_state(st, p)
-        cc = jnp.zeros((2, H, 1, 128), jnp.float32)
-        hh = jnp.zeros((2, H, 1, 128), jnp.float32)
-        (sf2, si2, obs, dirs, acts, logp, value, reward, done, last_v,
-         cc2, hh2) = fused_recurrent_collect(
-            sf, si, w, cc, hh, jnp.asarray([7], jnp.int32), p, T,
-            hidden=tuple(m.hidden), lstm_size=H, block=128, interpret=True,
-        )
-        assert int(done.sum()) > 0, "window must cross episode bounds"
-        n_feat = env_core.obs_size(p)
-        obs_tm = jnp.transpose(
-            obs.reshape(2, obs.shape[1], T, B)[:, :n_feat], (2, 0, 3, 1)
-        ).reshape(T, 2 * B, n_feat)
-        carry = (jnp.zeros((2 * B, H)), jnp.zeros((2 * B, H)))
-        for t in range(T):
-            carry, (logits, val) = m.apply(v, carry, obs_tm[t])
-            lp, _ = action_log_prob_and_entropy_packed(
-                logits, dirs[t].reshape(2 * B), acts[t].reshape(2 * B)
-            )
-            d = done[t].reshape(2 * B).astype(bool)
-            carry = reset_carry_where_done(carry, d)
-            np.testing.assert_allclose(
-                np.asarray(val), np.asarray(value[t].reshape(2 * B)),
-                rtol=1e-5, atol=1e-5,
-            )
-            np.testing.assert_allclose(
-                np.asarray(lp), np.asarray(logp[t].reshape(2 * B)),
-                rtol=1e-5, atol=1e-5,
-            )
-        cc2_tm = jnp.swapaxes(cc2.reshape(2, H, B), 1, 2).reshape(2 * B, H)
-        hh2_tm = jnp.swapaxes(hh2.reshape(2, H, B), 1, 2).reshape(2 * B, H)
-        np.testing.assert_allclose(np.asarray(carry[0]), np.asarray(cc2_tm),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(carry[1]), np.asarray(hh2_tm),
-                                   rtol=1e-5, atol=1e-5)
-
-    def test_fused_train_iteration_runs_and_updates(self):
-        """train_iteration_recurrent on the fused collect: finite loss,
-        params move, carry/env state advance."""
-        import functools
-
-        p, m, v = self._setup(ppt=1, max_steps=20)
-        cfg = a2c.A2CConfig(rollout_steps=4)
-        tx = a2c.make_optimizer(cfg)
-        runner = a2c.init_recurrent_runner(
-            jax.random.PRNGKey(0), m, p, cfg, 128, tx
-        )
-        collect = functools.partial(
-            a2c.collect_recurrent_rollout_fused, interpret=True
-        )
-        r2, metrics = a2c.train_iteration_recurrent(
-            runner, m, p, cfg, tx, collect_fn=collect
-        )
-        assert np.isfinite(float(metrics["loss"]))
-        assert any(
-            not np.allclose(np.asarray(a), np.asarray(b))
-            for a, b in zip(jax.tree.leaves(runner.params),
-                            jax.tree.leaves(r2.params))
-        )
-        assert not np.allclose(np.asarray(runner.carry[1]),
-                               np.asarray(r2.carry[1]))

@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_tpu import EnvParams
-from gym_futbol_tpu.models.policy import (
+from gym_futbol_jax import EnvParams
+from gym_futbol_jax.models.policy import (
     ActorCritic,
     action_log_prob_and_entropy,
     init_params,
     sample_actions,
 )
-from gym_futbol_tpu.ppo import (
+from gym_futbol_jax.ppo import (
     PPOConfig,
     Transition,
     _flatten_tm,
@@ -95,9 +95,8 @@ class TestPolicy:
 
 
 class TestFeatureMajorUpdate:
-    """The config-5 update path consumes the fused collect's [F, N]
-    feature-major buffer; these certify it against the row-major flax
-    forward (VERDICT r2 item 1a)."""
+    """The PPO update consumes the buffer feature-major ([F, N]); these
+    certify that path against the row-major ``model.apply`` forward."""
 
     def test_feature_major_forward_matches_apply(self, key):
         model = ActorCritic(n_players=2, hidden=(16, 8))
@@ -114,7 +113,7 @@ class TestFeatureMajorUpdate:
         )
 
     def test_logp_entropy_rows_matches_packed(self, key):
-        from gym_futbol_tpu.models.policy import (
+        from gym_futbol_jax.models.policy import (
             action_log_prob_and_entropy_packed,
         )
 
@@ -246,102 +245,11 @@ class TestTraining:
 
 
 class TestObsNormFolding:
-    """fold_obs_norm / unfold_obs_norm_grads (VERDICT r3 item 6b): the
-    folded first layer applied to RAW obs must equal the original layer
-    applied to z-scored obs, exactly as functions and through autodiff."""
-
-    def _flat_mlp(self, w, x_fm):
-        """Forward in the kernels' convention: W [in, out], b [out, 1],
-        obs feature-major [F, S]."""
-        dims = (((0,), (0,)), ((), ()))
-        h = x_fm
-        for i in range(0, len(w) - 4, 2):
-            h = jnp.tanh(jax.lax.dot_general(w[i], h, dims) + w[i + 1])
-        logits = jax.lax.dot_general(w[-4], h, dims) + w[-3]
-        value = jax.lax.dot_general(w[-2], h, dims) + w[-1]
-        return logits, value[0]
-
-    def _setup(self, key, f=22, s=64):
-        from gym_futbol_tpu.models.policy import ActorCritic, init_params
-        from gym_futbol_tpu.ops.fused_collect import flatten_actor_critic
-
-        model = ActorCritic(n_players=2, hidden=(16, 8))
-        params = init_params(key, model, EnvParams(players_per_team=2))
-        w = flatten_actor_critic(params, model)
-        ks = jax.random.split(key, 3)
-        x = jax.random.normal(ks[0], (w[0].shape[0], s)) * 3.0 + 1.0
-        mean = jax.random.normal(ks[1], (w[0].shape[0],))
-        var = jnp.abs(jax.random.normal(ks[2], (w[0].shape[0],))) + 0.1
-        inv_std = jax.lax.rsqrt(var + 1e-8)
-        return w, x, mean, inv_std
-
-    def test_fold_forward_equivalence(self, key):
-        from gym_futbol_tpu.ppo import fold_obs_norm
-
-        w, x, mean, inv_std = self._setup(key)
-        lf, vf = self._flat_mlp(fold_obs_norm(w, mean, inv_std), x)
-        z = (x - mean[:, None]) * inv_std[:, None]
-        lr, vr = self._flat_mlp(w, z)
-        np.testing.assert_allclose(np.asarray(lf), np.asarray(lr),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(vf), np.asarray(vr),
-                                   rtol=1e-5, atol=1e-5)
-
-    def test_unfold_grads_match_jax_grad(self, key):
-        """grad through (fold -> forward on raw x) must equal
-        unfold(grad of forward-on-raw-x at the folded weights)."""
-        from gym_futbol_tpu.ppo import fold_obs_norm, unfold_obs_norm_grads
-
-        w, x, mean, inv_std = self._setup(key)
-
-        def loss_folding(w):
-            l, v = self._flat_mlp(fold_obs_norm(w, mean, inv_std), x)
-            return jnp.sum(jnp.sin(l)) + jnp.sum(v * v)
-
-        def loss_raw(wf):
-            l, v = self._flat_mlp(wf, x)
-            return jnp.sum(jnp.sin(l)) + jnp.sum(v * v)
-
-        ref = jax.grad(loss_folding)(w)
-        got = unfold_obs_norm_grads(
-            jax.grad(loss_raw)(fold_obs_norm(w, mean, inv_std)),
-            mean, inv_std,
-        )
-        for a, b in zip(got, ref):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-5, atol=1e-6)
-
-    def test_posthoc_reward_norm_matches_inloop(self, key):
-        """The post-collect scan must replay the exact per-step
-        update/normalize sequence of the in-loop jnp path."""
-        from gym_futbol_tpu.ppo import posthoc_reward_norm
-        from gym_futbol_tpu.wrappers import RewardNorm
-
-        t, b = 7, 16
-        ks = jax.random.split(key, 2)
-        reward = jax.random.normal(ks[0], (t, 2 * b))
-        done = jax.random.bernoulli(ks[1], 0.2, (t, 2 * b))
-        gamma = 0.97
-
-        rn = RewardNorm.init(b)
-        got_rn, got = posthoc_reward_norm(rn, reward, done, gamma)
-
-        rn_ref = RewardNorm.init(b)
-        rows = []
-        for i in range(t):
-            rn_ref = rn_ref.update(reward[i, :b], done[i, :b], gamma)
-            rows.append(jnp.concatenate([
-                rn_ref.normalize(reward[i, :b]),
-                rn_ref.normalize(reward[i, b:]),
-            ]))
-        ref = jnp.stack(rows)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=1e-6, atol=1e-7)
-        np.testing.assert_allclose(np.asarray(got_rn.var),
-                                   np.asarray(rn_ref.var), rtol=1e-6)
+    """RunningNorm's moment merge: folding pre-computed batch moments in
+    (update_moments) equals folding the batch itself (update)."""
 
     def test_update_moments_matches_update(self, key):
-        from gym_futbol_tpu.wrappers import RunningNorm
+        from gym_futbol_jax.wrappers import RunningNorm
 
         obs = jax.random.normal(key, (64, 10)) * 2.0 + 3.0
         n0 = RunningNorm.init(10)
@@ -358,7 +266,7 @@ class TestShuffleBlockFallback:
     def test_degrades_to_largest_divisor(self):
         """ADVICE r3 item 2: a buffer divisible by 128 but not by
         shuffle_block must degrade to a chunky divisor, not to block=1."""
-        from gym_futbol_tpu.ppo import _shuffle_block_for
+        from gym_futbol_jax.ppo import _shuffle_block_for
 
         cfg = PPOConfig(shuffle_block=1024, minibatches=4)
         assert _shuffle_block_for(8192, cfg) == 1024
@@ -373,7 +281,7 @@ class TestShuffleBlockFallback:
     def test_update_epochs_on_odd_buffer(self, key):
         """update_epochs stays correct (non-empty minibatches, finite
         loss) on a buffer that triggers the degraded block size."""
-        from gym_futbol_tpu.models.policy import init_params
+        from gym_futbol_jax.models.policy import init_params
 
         p = EnvParams(players_per_team=1)
         cfg = PPOConfig(rollout_steps=3, epochs=1, minibatches=2,

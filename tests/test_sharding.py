@@ -1,23 +1,23 @@
 """Multi-device tests on the fake 8-device CPU mesh (SURVEY.md §4.2 item 4;
 BASELINE configs 4-5 logic). These exercise the same code paths that run on
-a real pod slice — shard_map semantics are device-count agnostic."""
+several GPUs — shard_map semantics are device-count agnostic."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_tpu import EnvParams
-from gym_futbol_tpu.models.policy import ActorCritic
-from gym_futbol_tpu.parallel import (
+from gym_futbol_jax import EnvParams
+from gym_futbol_jax.models.policy import ActorCritic
+from gym_futbol_jax.parallel import (
     env_sharding,
     make_mesh,
     shard_env_state,
     shard_rollout,
     shard_train_iteration,
 )
-from gym_futbol_tpu.ppo import PPOConfig, init_runner, make_optimizer
-from gym_futbol_tpu.vector import reset_batch
+from gym_futbol_jax.ppo import PPOConfig, init_runner, make_optimizer
+from gym_futbol_jax.vector import reset_batch
 
 
 P = EnvParams(players_per_team=2)
@@ -44,7 +44,7 @@ class TestShardedRollout:
     def test_sharded_matches_single_device(self, mesh, key):
         """The sharded rollout must be bitwise-identical in semantics to the
         unsharded one (pure SPMD, no collectives in the env step)."""
-        from gym_futbol_tpu.vector import random_policy, rollout
+        from gym_futbol_jax.vector import random_policy, rollout
 
         n, t = 16, 10
         state, _ = reset_batch(key, P, n)
@@ -93,9 +93,9 @@ class TestShardedTraining:
         replicated across shards, and eval uses frozen stats."""
         import functools
 
-        from gym_futbol_tpu.parallel import ppo_runner_specs
-        from gym_futbol_tpu.parallel.mesh import ENV_AXIS
-        from gym_futbol_tpu.ppo import make_normalized_collect, train_iteration
+        from gym_futbol_jax.parallel import ppo_runner_specs
+        from gym_futbol_jax.parallel.mesh import ENV_AXIS
+        from gym_futbol_jax.ppo import make_normalized_collect, train_iteration
 
         env_params = EnvParams(players_per_team=1, max_steps=32)
         cfg = PPOConfig(rollout_steps=4, epochs=1, minibatches=2)
@@ -132,8 +132,8 @@ class TestShardedTraining:
         assert runner.rew_norm.ret.shape == (n_envs,)
 
         # eval path: frozen stats, no update
-        from gym_futbol_tpu.evaluate import evaluate
-        from gym_futbol_tpu.models.policy import make_normalized_policy_fn
+        from gym_futbol_jax.evaluate import evaluate
+        from gym_futbol_jax.models.policy import make_normalized_policy_fn
 
         count_before = float(runner.obs_norm.count)
         policy = make_normalized_policy_fn(model, runner.params,
@@ -156,3 +156,52 @@ class TestShardedTraining:
         runner, _ = step_fn(runner)
         p1 = jax.tree.leaves(runner.params)[0]
         assert not np.allclose(np.asarray(p0), np.asarray(p1))
+
+
+class TestFourDeviceEmulation:
+    """The one-device reference of the sharded iteration
+    (parallel.emulate_sharded_iteration) that chip_smoke.py --four-gpus
+    compares 4 GPUs against."""
+
+    def _setup(self):
+        from gym_futbol_jax.parallel import emulate_sharded_iteration
+
+        env_params = EnvParams(players_per_team=2, max_steps=16)
+        cfg = PPOConfig(rollout_steps=4, epochs=2, minibatches=2,
+                        shuffle_block=8)
+        model = ActorCritic(n_players=2, hidden=(16,))
+        tx = make_optimizer(cfg)
+        make = lambda: init_runner(jax.random.PRNGKey(0), model, env_params,
+                                   cfg, n_envs=64, tx=tx)
+        emu = emulate_sharded_iteration(4, model, env_params, cfg, tx)
+        return env_params, cfg, model, tx, make, emu
+
+    def test_emulation_matches_sharded_iteration(self):
+        from gym_futbol_jax.parallel import shard_runner
+
+        env_params, cfg, model, tx, make, emu = self._setup()
+        mesh = make_mesh(jax.devices()[:4])
+        fn = shard_train_iteration(mesh, model, env_params, cfg, tx)
+        r4, r1 = shard_runner(make(), mesh), make()
+        for _ in range(2):
+            r4, m4 = fn(r4)
+            r1, m1 = emu(r1)
+            np.testing.assert_allclose(float(m4["loss"]), float(m1["loss"]),
+                                       rtol=1e-5, atol=1e-6)
+        for a, b in zip(jax.tree.leaves(r4.params), jax.tree.leaves(r1.params)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(np.asarray(r4.env_state.pos),
+                                      np.asarray(r1.env_state.pos))
+
+    @pytest.mark.parametrize("n_dev", [1, 4])
+    def test_placed_runner_compiles_once(self, n_dev):
+        from gym_futbol_jax.parallel import shard_runner
+
+        env_params, cfg, model, tx, make, _ = self._setup()
+        mesh = make_mesh(jax.devices()[:n_dev])
+        fn = shard_train_iteration(mesh, model, env_params, cfg, tx)
+        r = shard_runner(make(), mesh)
+        for _ in range(3):
+            r, _ = fn(r)
+        assert fn._cache_size() == 1
