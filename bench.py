@@ -18,8 +18,8 @@ Configs (--config):
 Configs 2-3 take ``--impl jnp`` (vector.rollout under jit+lax.scan) or
 ``--impl triton`` (the fused Pallas rollout kernel, ops/fused_rollout.py);
 configs 4-6 run the jnp path only. An implementation that cannot run
-here is refused, never replaced by another. Timings need a GPU;
-``--allow-cpu`` rehearses on the CPU, and the record then says so.
+here is refused, never replaced by another, and so is any platform but
+a GPU.
 
 Usage: python bench.py [--config 3] [--impl triton] [--envs N] [--steps T]
 """
@@ -65,9 +65,9 @@ def bench_rollout_triton(args) -> float:
     """Configs 2-3 on the fused rollout kernel. Returns steps/s."""
     import jax
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.ops import fused_rollout, pack_state
-    from gym_futbol_jax.vector import reset_batch
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.ops import fused_rollout, pack_state
+    from gym_futbol_tpu.vector import reset_batch
 
     params = EnvParams(players_per_team=args.ppt)
     state, _ = reset_batch(jax.random.PRNGKey(0), params, args.envs)
@@ -85,9 +85,9 @@ def bench_rollout_jnp(args) -> float:
     """Configs 2-3 on vector.rollout. Returns steps/s."""
     import jax
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.parallel import make_mesh, shard_env_state, shard_rollout
-    from gym_futbol_jax.vector import reset_batch
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.parallel import make_mesh, shard_env_state, shard_rollout
+    from gym_futbol_tpu.vector import reset_batch
 
     params = EnvParams(players_per_team=args.ppt)
     mesh = make_mesh()
@@ -108,9 +108,9 @@ def bench_selfplay(args) -> float:
     jnp rollout (evaluate._run_matches). Returns steps/s."""
     import jax
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.evaluate import _run_matches, joint_policy
-    from gym_futbol_jax.models.policy import (
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.evaluate import _run_matches, joint_policy
+    from gym_futbol_tpu.models.policy import (
         ActorCritic, init_params, make_policy_fn,
     )
 
@@ -138,12 +138,12 @@ def bench_ppo(args, with_update: bool) -> float:
     config 5 (full sharded PPO iteration). Returns env-steps/s."""
     import jax
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.models.policy import ActorCritic
-    from gym_futbol_jax.parallel import (
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.models.policy import ActorCritic
+    from gym_futbol_tpu.parallel import (
         make_mesh, shard_runner, shard_train_iteration,
     )
-    from gym_futbol_jax.ppo import (
+    from gym_futbol_tpu.ppo import (
         PPOConfig, collect_rollout, compute_gae, init_runner, make_optimizer,
     )
 
@@ -189,12 +189,12 @@ def bench_scaling(args) -> dict:
     """
     import jax
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.models.policy import ActorCritic
-    from gym_futbol_jax.parallel import (
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.models.policy import ActorCritic
+    from gym_futbol_tpu.parallel import (
         make_mesh, shard_runner, shard_train_iteration,
     )
-    from gym_futbol_jax.ppo import PPOConfig, init_runner, make_optimizer
+    from gym_futbol_tpu.ppo import PPOConfig, init_runner, make_optimizer
 
     devices = jax.devices()
     counts = [d for d in (1, 2, 4, 8, 16, 32, 64) if d <= len(devices)]
@@ -237,13 +237,11 @@ def bench_scaling(args) -> dict:
     }
 
 
-def check_impl(config: int, impl: str, platform: str) -> None:
-    """Refuse an implementation the config or the platform cannot run."""
+def check_impl(config: int, impl: str) -> None:
+    """Refuse an implementation the config cannot run."""
     if impl == "triton" and config not in ROLLOUT_CONFIGS:
         raise SystemExit(f"--impl triton: config {config} has only the jnp "
                          f"path (the kernel runs configs {ROLLOUT_CONFIGS})")
-    if impl == "triton" and platform != "gpu":
-        raise SystemExit(f"--impl triton needs a GPU; JAX found {platform}")
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -262,20 +260,17 @@ def main(argv: list[str] | None = None) -> dict:
                     help="timed iterations (default 10; 40 for config 2, "
                          "whose iterations are short against the one final "
                          "sync)")
-    ap.add_argument("--allow-cpu", action="store_true",
-                    help="rehearse on the CPU; the record names the "
-                         "platform, and its numbers are not device numbers")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    from gym_futbol_jax.utils.cache import enable_compilation_cache
-    from gym_futbol_jax.utils.device import device_record, nvidia_smi
+    from gym_futbol_tpu.utils.cache import enable_compilation_cache
+    from gym_futbol_tpu.utils.device import device_record, nvidia_smi
 
     enable_compilation_cache()
     dev = device_record()
-    if dev["platform"] != "gpu" and not args.allow_cpu:
+    if dev["platform"] != "gpu":
         raise SystemExit(f"bench.py times the GPU; JAX found "
-                         f"{dev['platform']} (pass --allow-cpu to rehearse)")
+                         f"{dev['platform']}")
     print(f"# card: {nvidia_smi()}")
 
     if args.scaling:
@@ -292,7 +287,7 @@ def main(argv: list[str] | None = None) -> dict:
     if args.iters is None:
         args.iters = 40 if args.config == 2 else 10
     impl = args.impl or ("triton" if args.config in ROLLOUT_CONFIGS else "jnp")
-    check_impl(args.config, impl, dev["platform"])
+    check_impl(args.config, impl)
 
     if args.config in ROLLOUT_CONFIGS:
         run = bench_rollout_triton if impl == "triton" else bench_rollout_jnp

@@ -1,4 +1,4 @@
-"""gym_futbol_jax — a vectorized soccer environment engine in JAX.
+"""gym_futbol_tpu — a vectorized soccer environment engine in JAX.
 
 Brand-new framework with the capabilities of the reference
 ``yc2454/gym-futbol`` ``FutbolEnv`` (see SURVEY.md), re-designed for
@@ -9,7 +9,7 @@ kernel for the GPU, and a sharded PPO learner.
 Quick start::
 
     import jax
-    from gym_futbol_jax import EnvParams, reset, step
+    from gym_futbol_tpu import EnvParams, reset, step
 
     params = EnvParams(players_per_team=2)
     state, obs = reset(jax.random.PRNGKey(0), params)

@@ -1,7 +1,7 @@
 """A2C learner, fully on-device.
 
 The reference's training scripts use stable-baselines ``PPO2``/``A2C``
-(SURVEY.md §2.1 #12, §3.5). :mod:`gym_futbol_jax.ppo` covers PPO; this
+(SURVEY.md §2.1 #12, §3.5). :mod:`gym_futbol_tpu.ppo` covers PPO; this
 module is the synchronous advantage actor-critic companion: one shared
 self-play rollout (reused from ppo.collect_rollout — per-team policy,
 both perspectives in the buffer), n-step/GAE targets, and a SINGLE
@@ -10,7 +10,7 @@ epochs. Classic A2C uses RMSProp (the stable-baselines
 default); :func:`make_optimizer` follows that.
 
 Like PPO, the whole iteration is one pure jittable function, and the
-sharded path reuses :func:`gym_futbol_jax.parallel.shard_iteration`
+sharded path reuses :func:`gym_futbol_tpu.parallel.shard_iteration`
 with gradients pmean'd over the 'env' mesh axis.
 """
 
@@ -90,7 +90,7 @@ def train_iteration(
     """One A2C iteration: rollout -> advantages -> one gradient step.
 
     Pure and jittable; drop-in signature-compatible with
-    :func:`gym_futbol_jax.ppo.train_iteration` so the sharding layer and
+    :func:`gym_futbol_tpu.ppo.train_iteration` so the sharding layer and
     the training CLI treat both algorithms uniformly.
     """
     runner, traj, last_value = collect_rollout(runner, model, env_params, cfg)
@@ -248,7 +248,7 @@ def train_iteration_recurrent(
 ) -> tuple[RecurrentRunnerState, dict[str, jax.Array]]:
     """One recurrent A2C iteration. Signature-compatible with the
     sharding layer (pass ``runner_specs=recurrent_runner_specs()`` to
-    :func:`gym_futbol_jax.parallel.shard_train_iteration`)."""
+    :func:`gym_futbol_tpu.parallel.shard_train_iteration`)."""
     b = runner.obs.shape[0]
     init_carry = _flat_carry(runner.carry, b)
     runner, traj, last_value = collect_recurrent_rollout(

@@ -134,7 +134,7 @@ def step(
     auto_reset: bool = False,
 ) -> tuple[EnvState, StepOutput]:
     """One environment step (STEP ORDER above). ``actions``: [n_players, 2]
-    int32 per the ACTION SPEC in :mod:`gym_futbol_jax.game`.
+    int32 per the ACTION SPEC in :mod:`gym_futbol_tpu.game`.
 
     With ``auto_reset=True`` (the vectorized/training path), wherever
     ``done`` is hit the carried state is replaced by a fresh episode in
@@ -256,7 +256,7 @@ class FutbolEnv:
     Mirrors the reference's class surface (SURVEY.md §2.1 #2):
     ``reset() -> obs``; ``step(a) -> (obs, reward, done, info)``;
     ``render()``; ``action_space``; ``observation_space``. For throughput
-    use :mod:`gym_futbol_jax.vector` instead — this wrapper exists for
+    use :mod:`gym_futbol_tpu.vector` instead — this wrapper exists for
     ergonomic parity and debugging.
     """
 

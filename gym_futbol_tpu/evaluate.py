@@ -6,7 +6,7 @@ full episodes. Supports policy-vs-random, policy-vs-policy (self-play
 leagues), and random-vs-random baselines.
 
 Usage:
-    from gym_futbol_jax.evaluate import evaluate
+    from gym_futbol_tpu.evaluate import evaluate
     result = evaluate(params, policy_a=my_policy, n_envs=256, n_steps=300)
     # result["goals"] [2], result["win_rate"], ...
 """

@@ -4,7 +4,7 @@ The reference trains stable-baselines ``PPO2("MlpPolicy", env)`` (SURVEY.md
 §3.5 [RECALL-M]) — a small MLP over the flat observation. Ours is the
 same network in plain JAX: one shared torso, one categorical head per
 (player, slot) pair (direction in 5, act in 5 — the ACTION SPEC in
-:mod:`gym_futbol_jax.game`), and a value head.
+:mod:`gym_futbol_tpu.game`), and a value head.
 
 PARAMETERS. ``init`` returns the tree a ``flax.linen`` module of the same
 shape would (``{"params": {"Dense_0": {"kernel", "bias"}, ...}}``), with
@@ -229,7 +229,7 @@ def action_log_prob_and_entropy(
 
 def make_policy_fn(model: ActorCritic, params):
     """Adapter to the ``rollout(policy)`` signature in
-    :mod:`gym_futbol_jax.vector`."""
+    :mod:`gym_futbol_tpu.vector`."""
 
     def policy(key: jax.Array, obs: jax.Array) -> jax.Array:
         logits, _ = model.apply(params, obs)

@@ -4,7 +4,7 @@ The stable-baselines policy family the reference trains with includes
 ``MlpLstmPolicy`` alongside ``MlpPolicy`` (SURVEY.md §3.5). This is its
 analog in plain JAX: an MLP torso, an LSTM cell carried across env steps
 (reset where ``done``), and the same flat-logits categorical heads as
-:mod:`gym_futbol_jax.models.policy` (layout notes there apply — all
+:mod:`gym_futbol_tpu.models.policy` (layout notes there apply — all
 categorical math stays in row form).
 
 The parameter tree, initialisers and per-parameter init keys are those of

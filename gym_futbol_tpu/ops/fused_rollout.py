@@ -1,6 +1,6 @@
 """Fused T-step rollout as one Pallas kernel on the Triton route.
 
-The XLA path (:func:`gym_futbol_jax.vector.rollout`) runs each env step
+The XLA path (:func:`gym_futbol_tpu.vector.rollout`) runs each env step
 as a ``lax.scan`` body. Inside it, the physics ``fori_loop`` over
 ``substeps`` wraps a ``fori_loop`` over ``solver_iterations``: about 50
 device-loop iterations of tiny ``[B]`` elementwise work per env step,
@@ -29,9 +29,9 @@ same code runs in the kernel, in interpret mode and in the tests, and the
 stream does not depend on the block size or on how the batch is sharded
 (``env_offset`` gives a shard's first global env index).
 
-SEMANTICS. The step pipeline of :func:`gym_futbol_jax.env.step` with
+SEMANTICS. The step pipeline of :func:`gym_futbol_tpu.env.step` with
 ``auto_reset=True``, built from the same scalar-form functions of
-:mod:`gym_futbol_jax.game` and :mod:`gym_futbol_jax.physics` (each
+:mod:`gym_futbol_tpu.game` and :mod:`gym_futbol_tpu.physics` (each
 "scalar" is a ``[block]`` env vector here). Only the random stream
 differs from the jnp path, which threads ``jax.random`` keys: same
 distributions, different draws. :func:`fused_rollout_replay` takes
@@ -157,7 +157,7 @@ def n_draws_per_step(params: EnvParams) -> int:
 def _fused_step(px, py, vx, vy, possession, score0, score1, t,
                 dirs, acts, theta, noise_x, noise_y, params: EnvParams):
     """One env.step(auto_reset=True) on env vectors — the same pipeline as
-    gym_futbol_jax.env.step, built from the same scalar-form functions.
+    gym_futbol_tpu.env.step, built from the same scalar-form functions.
     Returns (new state vectors..., r0/r1 per-team rewards, goal flags,
     done)."""
     dtype = jnp.float32

@@ -175,7 +175,7 @@ def shard_train_iteration(
 
     ``iteration_fn`` defaults to PPO's; any function with the signature
     ``(runner, model, env_params, cfg, tx, axis_name) -> (runner, metrics)``
-    works (e.g. :func:`gym_futbol_jax.a2c.train_iteration`).
+    works (e.g. :func:`gym_futbol_tpu.a2c.train_iteration`).
     ``runner_specs`` overrides the PartitionSpec pytree for non-default
     runner structures (e.g. ``a2c.recurrent_runner_specs()`` for the
     LSTM carry). Returns f(runner) -> (runner, metrics), jitted.

@@ -5,7 +5,7 @@ rollout loop (SURVEY.md §3.5) — host-bound, single process, one agent
 controlling one side. Here the whole iteration (rollout with lax.scan ->
 GAE -> minibatched clipped-surrogate epochs) is one jittable pure function
 over the batched env, so it runs as a single XLA program per iteration and
-shards over the ``env`` mesh axis (see :mod:`gym_futbol_jax.parallel`):
+shards over the ``env`` mesh axis (see :mod:`gym_futbol_tpu.parallel`):
 trajectories stay device-local, the only collective is the gradient/metric
 reduction (SURVEY.md §2.3).
 
@@ -523,7 +523,7 @@ def train_iteration(
     """One full PPO iteration: rollout -> GAE -> epochs of updates.
 
     Pure and jittable; this is the unit that gets jit'd/shard_map'd by
-    :mod:`gym_futbol_jax.parallel` and by ``train.py``. ``collect_fn``
+    :mod:`gym_futbol_tpu.parallel` and by ``train.py``. ``collect_fn``
     defaults to :func:`collect_rollout`; :func:`make_normalized_collect`
     builds the VecNormalize variant.
     """

@@ -2,7 +2,7 @@
 analog (SURVEY.md §3.5; VERDICT r4 item 1a).
 
 The reference family trains its LSTM policy with PPO2 at least as often
-as with A2C; :mod:`gym_futbol_jax.a2c` covers the recurrent A2C side
+as with A2C; :mod:`gym_futbol_tpu.a2c` covers the recurrent A2C side
 (full-batch BPTT), and this module is the clipped-surrogate companion:
 
 - collect: the EXISTING recurrent self-play rollout

@@ -6,7 +6,7 @@ so users write ``gym.make("gym_futbol:futbol-v0")`` (SURVEY.md §2.1 #1,
 the same entry-point ergonomics without depending on gym: a tiny registry
 mapping string ids to :class:`EnvParams` factories.
 
-    from gym_futbol_jax import make
+    from gym_futbol_tpu import make
     env = make("futbol-v0")                    # stateful Gym-style class
     params = make_params("futbol-3v3-v0")      # just the params (pure API)
 

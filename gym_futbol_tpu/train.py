@@ -4,10 +4,10 @@ The reference's training entry is a script calling stable-baselines
 ``PPO2(...).learn()`` over a Python rollout loop (SURVEY.md §3.5). Ours
 runs the whole iteration on-device, envs sharded over the 'env' mesh:
 
-    python -m gym_futbol_jax.train --ppt 3 --envs 16384 --iters 100
+    python -m gym_futbol_tpu.train --ppt 3 --envs 16384 --iters 100
 
 Multi-host: launch one process per host with the usual JAX env vars; the
-mesh spans all processes' devices (gym_futbol_jax.parallel.mesh).
+mesh spans all processes' devices (gym_futbol_tpu.parallel.mesh).
 """
 
 from __future__ import annotations

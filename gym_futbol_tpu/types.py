@@ -12,7 +12,7 @@ Here the split is JAX-idiomatic instead:
   every pure function as a **static** argument so XLA constant-folds all
   physics/game constants into the compiled step. One compiled executable
   per distinct param set (the normal case: one per experiment).
-- :class:`EnvState` — a pytree (:func:`gym_futbol_jax.pytree.dataclass`) of arrays: the
+- :class:`EnvState` — a pytree (:func:`gym_futbol_tpu.pytree.dataclass`) of arrays: the
   full world state of ONE environment. Batching is purely external via
   ``jax.vmap`` (SURVEY.md §7.2: "single-env semantics stay readable").
 

@@ -1,7 +1,7 @@
 """Checkpoint/resume via orbax (SURVEY.md §5).
 
 The reference has no checkpointing beyond stable-baselines' saved
-policies. Here the whole :class:`~gym_futbol_jax.ppo.RunnerState` —
+policies. Here the whole :class:`~gym_futbol_tpu.ppo.RunnerState` —
 params, optimizer state, AND the batched env state (a pytree, so
 trivially snapshottable) — round-trips through orbax, making host
 restarts cheap and exact: training resumes mid-episode.

@@ -3,7 +3,7 @@
 This is the layer the reference lacks entirely — its only scale story is
 stable-baselines' ``SubprocVecEnv`` Python processes (SURVEY.md §2.3).
 Here the batch dimension is a ``vmap`` axis over the pure single-env
-functions in :mod:`gym_futbol_jax.env`, so single-env semantics stay
+functions in :mod:`gym_futbol_tpu.env`, so single-env semantics stay
 readable while XLA fuses the batched step into a few device kernels.
 
 Auto-reset (BASELINE.json config 3) is built in: wherever ``done`` is hit,
@@ -53,7 +53,7 @@ def step_batch(
     Returns (new_state, out): ``out.reward``/``done``/``info`` report the
     terminal transition, while ``new_state`` (and ``out.obs``, which
     follows it) has already been re-initialized where done — classic
-    vec-env autoreset semantics; see :func:`gym_futbol_jax.env.step`.
+    vec-env autoreset semantics; see :func:`gym_futbol_tpu.env.step`.
 
     Auto-reset happens *inside* ``env.step`` (static flag), reusing the
     step's own kickoff placement draw — zero extra RNG or reset work.

@@ -3,7 +3,7 @@
 // This is the JAX engine's stand-in for the role Chipmunk2D's C core
 // plays in the reference (SURVEY.md §2.2): a native, sequential,
 // single-env implementation of the NORMATIVE PHYSICS SPEC in
-// gym_futbol_jax/physics.py (module docstring). It is written from that
+// gym_futbol_tpu/physics.py (module docstring). It is written from that
 // spec — not from Chipmunk or pymunk sources — and must match the JAX
 // engine bit-closely in float64 (parity harness: parity/check_physics_parity.py,
 // SURVEY.md §4.2 item 1). Any change to the spec must land in both.
@@ -253,7 +253,7 @@ double nearest_player_ball_dist(const std::vector<V2>& pos, int ppt, int team) {
 extern "C" {
 
 // Full env.step in sequential double precision — the native oracle for the
-// WHOLE normative step pipeline in gym_futbol_jax/env.py (STEP ORDER), not
+// WHOLE normative step pipeline in gym_futbol_tpu/env.py (STEP ORDER), not
 // just the physics. RNG is injected: ``theta`` is the kick-noise angle
 // already scaled by kick_noise; ``kickoff_noise`` is [n_bodies*2] uniforms
 // in [-1, 1] (the draw game.kickoff_positions makes). The parity harness

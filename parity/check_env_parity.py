@@ -1,7 +1,7 @@
 """FULL env.step parity: JAX engine (float64, CPU) vs the C++ oracle.
 
 Extends parity/check_physics_parity.py from the physics kernel to the
-WHOLE normative step pipeline (gym_futbol_jax/env.py STEP ORDER): action
+WHOLE normative step pipeline (gym_futbol_tpu/env.py STEP ORDER): action
 decode, possession bids, pass/shoot kicks, dribble carry, goals, OOB
 clamp, shaped rewards, kickoff re-placement, clock and fused auto-reset.
 
@@ -28,8 +28,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from gym_futbol_jax import env as env_core  # noqa: E402
-from gym_futbol_jax.types import (  # noqa: E402
+from gym_futbol_tpu import env as env_core  # noqa: E402
+from gym_futbol_tpu.types import (  # noqa: E402
     EnvParams,
     EnvState,
     RewardConfig,
@@ -211,7 +211,7 @@ def batch_parity(lib, params: EnvParams, n_states: int, seed: int = 0
 
 
 def main() -> int:
-    from gym_futbol_jax.utils.cache import enable_compilation_cache
+    from gym_futbol_tpu.utils.cache import enable_compilation_cache
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)

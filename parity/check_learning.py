@@ -37,17 +37,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-from gym_futbol_jax import EnvParams  # noqa: E402
-from gym_futbol_jax.evaluate import evaluate  # noqa: E402
-from gym_futbol_jax.models.policy import ActorCritic, make_policy_fn  # noqa: E402
-from gym_futbol_jax.ppo import (  # noqa: E402
+from gym_futbol_tpu import EnvParams  # noqa: E402
+from gym_futbol_tpu.evaluate import evaluate  # noqa: E402
+from gym_futbol_tpu.models.policy import ActorCritic, make_policy_fn  # noqa: E402
+from gym_futbol_tpu.ppo import (  # noqa: E402
     PPOConfig,
     collect_rollout,
     init_runner,
     make_optimizer,
     train_iteration,
 )
-from gym_futbol_jax.utils.cache import enable_compilation_cache  # noqa: E402
+from gym_futbol_tpu.utils.cache import enable_compilation_cache  # noqa: E402
 
 ART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
 
@@ -129,7 +129,7 @@ def main() -> int:
     tx = make_optimizer(cfg, total_iters=args.iters)
     collect_fn = collect_rollout
     if args.normalize:
-        from gym_futbol_jax.ppo import make_normalized_collect
+        from gym_futbol_tpu.ppo import make_normalized_collect
 
         collect_fn = make_normalized_collect()
     step_fn = jax.jit(

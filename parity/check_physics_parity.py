@@ -4,7 +4,7 @@ This is the framework's instantiation of BASELINE config 1's parity check
 (SURVEY.md §4.2 item 1). The original target — goldens from the reference
 itself — is blocked: the reference mount has been empty every session and
 pymunk is not installed (SURVEY.md §0.1, §7.5), so no reference process
-can run here. The normative spec in gym_futbol_jax/physics.py therefore
+can run here. The normative spec in gym_futbol_tpu/physics.py therefore
 serves as the contract, implemented twice (JAX + C++), and this harness
 certifies the two agree to ~1e-9 in float64 over randomized trajectories,
 including dense-contact regimes. When the mount populates, the same
@@ -29,11 +29,11 @@ os.environ["JAX_ENABLE_X64"] = "1"
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from gym_futbol_jax.physics import physics_step  # noqa: E402
-from gym_futbol_jax.utils.cache import enable_compilation_cache  # noqa: E402
+from gym_futbol_tpu.physics import physics_step  # noqa: E402
+from gym_futbol_tpu.utils.cache import enable_compilation_cache  # noqa: E402
 
 enable_compilation_cache()
-from gym_futbol_jax.types import EnvParams  # noqa: E402
+from gym_futbol_tpu.types import EnvParams  # noqa: E402
 from native.build import load_oracle, oracle_physics_step  # noqa: E402
 
 

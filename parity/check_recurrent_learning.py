@@ -38,12 +38,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-from gym_futbol_jax import EnvParams  # noqa: E402
-from gym_futbol_jax import a2c  # noqa: E402
-from gym_futbol_jax import recurrent_ppo as rppo  # noqa: E402
-from gym_futbol_jax.evaluate import evaluate_recurrent  # noqa: E402
-from gym_futbol_jax.models.recurrent import RecurrentActorCritic  # noqa: E402
-from gym_futbol_jax.utils.cache import enable_compilation_cache  # noqa: E402
+from gym_futbol_tpu import EnvParams  # noqa: E402
+from gym_futbol_tpu import a2c  # noqa: E402
+from gym_futbol_tpu import recurrent_ppo as rppo  # noqa: E402
+from gym_futbol_tpu.evaluate import evaluate_recurrent  # noqa: E402
+from gym_futbol_tpu.models.recurrent import RecurrentActorCritic  # noqa: E402
+from gym_futbol_tpu.utils.cache import enable_compilation_cache  # noqa: E402
 
 ART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
 

@@ -34,15 +34,15 @@ def train(args) -> None:
     import jax
     import numpy as np
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.models.policy import ActorCritic
-    from gym_futbol_jax.ppo import (
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.models.policy import ActorCritic
+    from gym_futbol_tpu.ppo import (
         PPOConfig,
         init_runner,
         make_optimizer,
         train_iteration,
     )
-    from gym_futbol_jax.utils.cache import enable_compilation_cache
+    from gym_futbol_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     env_params = EnvParams(players_per_team=args.ppt)
@@ -71,7 +71,7 @@ def train(args) -> None:
 
 
 def _recurrent_model(ppt: int):
-    from gym_futbol_jax.models.recurrent import RecurrentActorCritic
+    from gym_futbol_tpu.models.recurrent import RecurrentActorCritic
 
     return RecurrentActorCritic(n_players=ppt, hidden=(128,), lstm_size=128)
 
@@ -83,9 +83,9 @@ def train_recurrent(args) -> None:
     import flax.serialization
     import jax
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax import recurrent_ppo as rppo
-    from gym_futbol_jax.utils.cache import enable_compilation_cache
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu import recurrent_ppo as rppo
+    from gym_futbol_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     env_params = EnvParams(players_per_team=args.ppt)
@@ -121,11 +121,11 @@ def render_recurrent(args) -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.evaluate import joint_policy, random_team_policy
-    from gym_futbol_jax.models.policy import sample_actions
-    from gym_futbol_jax.models.recurrent import init_recurrent_params
-    from gym_futbol_jax.render import render_episode, save_video
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.evaluate import joint_policy, random_team_policy
+    from gym_futbol_tpu.models.policy import sample_actions
+    from gym_futbol_tpu.models.recurrent import init_recurrent_params
+    from gym_futbol_tpu.render import render_episode, save_video
 
     params = EnvParams(players_per_team=args.ppt)
     model = _recurrent_model(args.ppt)
@@ -167,10 +167,10 @@ def render(args) -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.evaluate import joint_policy, random_team_policy
-    from gym_futbol_jax.models.policy import ActorCritic, make_policy_fn
-    from gym_futbol_jax.render import render_episode, save_video
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.evaluate import joint_policy, random_team_policy
+    from gym_futbol_tpu.models.policy import ActorCritic, make_policy_fn
+    from gym_futbol_tpu.render import render_episode, save_video
 
     data = np.load(WEIGHTS)
     arrs = [data[f"arr_{i}"] for i in range(len(data.files) - 1)]

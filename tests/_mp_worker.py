@@ -25,7 +25,7 @@ def main() -> int:
     )
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-    from gym_futbol_jax.parallel.mesh import init_distributed
+    from gym_futbol_tpu.parallel.mesh import init_distributed
 
     init_distributed(
         coordinator_address=coordinator,
@@ -40,11 +40,11 @@ def main() -> int:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.models.policy import ActorCritic
-    from gym_futbol_jax.parallel import make_mesh, shard_train_iteration
-    from gym_futbol_jax.parallel.mesh import ENV_AXIS
-    from gym_futbol_jax.ppo import PPOConfig, init_runner, make_optimizer
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.models.policy import ActorCritic
+    from gym_futbol_tpu.parallel import make_mesh, shard_train_iteration
+    from gym_futbol_tpu.parallel.mesh import ENV_AXIS
+    from gym_futbol_tpu.ppo import PPOConfig, init_runner, make_optimizer
 
     env_params = EnvParams(
         players_per_team=1, max_steps=16, substeps=2, solver_iterations=3

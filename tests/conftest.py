@@ -26,7 +26,7 @@ assert jax.device_count() == 8, (
     f"tests need the fake 8-device CPU mesh, got {jax.devices()}"
 )
 
-from gym_futbol_jax.utils.cache import enable_compilation_cache  # noqa: E402
+from gym_futbol_tpu.utils.cache import enable_compilation_cache  # noqa: E402
 
 # Persistent XLA compile cache: the physics program's compile cost grows
 # steeply with body count (5v5 ~3min on CPU); pay it once per machine.

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax import a2c
-from gym_futbol_jax.models.policy import ActorCritic
-from gym_futbol_jax.parallel import (
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu import a2c
+from gym_futbol_tpu.models.policy import ActorCritic
+from gym_futbol_tpu.parallel import (
     make_mesh,
     shard_env_state,
     shard_train_iteration,
@@ -59,7 +59,7 @@ class TestA2C:
         import optax
         new_params = optax.apply_updates(runner.params, updates)
 
-        from gym_futbol_jax.models.policy import (
+        from gym_futbol_tpu.models.policy import (
             action_log_prob_and_entropy_packed,
         )
         logits0, _ = model.apply(runner.params, flat.obs)

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import EnvParams, reset, step
-from gym_futbol_jax.vector import (
+from gym_futbol_tpu import EnvParams, reset, step
+from gym_futbol_tpu.vector import (
     STATE_AXES,
     random_policy,
     reset_batch,

@@ -36,8 +36,8 @@ def test_replay_error_is_scaled_per_env():
     max_speed, the worst coordinate of each env."""
     import numpy as np
 
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.vector import reset_batch
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.vector import reset_batch
 
     params = EnvParams()
     ref, _ = reset_batch(jax.random.PRNGKey(0), params, 3)
@@ -56,3 +56,45 @@ def test_help_lists_four_gpu_option():
         capture_output=True, text=True, timeout=300,
     ).stdout
     assert "--four-gpus" in out
+
+
+def test_four_gpu_gates_catch_a_lost_pmean():
+    """--four-gpus gates on 4 CPU devices: the sharded iteration passes
+    against its one-device emulation; the same iteration without the
+    gradient pmean fails, its parameter replicas apart."""
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.models.policy import ActorCritic
+    from gym_futbol_tpu.parallel import (
+        emulate_sharded_iteration, make_mesh, shard_runner,
+        shard_train_iteration,
+    )
+    from gym_futbol_tpu.ppo import (
+        PPOConfig, init_runner, make_optimizer, train_iteration,
+    )
+
+    env_params = EnvParams(players_per_team=2, max_steps=16)
+    cfg = PPOConfig(rollout_steps=4, epochs=2, minibatches=2, shuffle_block=8)
+    model = ActorCritic(n_players=2, hidden=(16,))
+    tx = make_optimizer(cfg)
+    mesh = make_mesh(jax.devices()[:4])
+    make = lambda: init_runner(jax.random.PRNGKey(0), model, env_params, cfg,
+                               n_envs=64, tx=tx)
+
+    def per_shard(r, model, env_params, cfg, tx, axis_name):
+        return train_iteration(r, model, env_params, cfg, tx)
+
+    p0 = chip_smoke._flat(make().params)
+    emu = emulate_sharded_iteration(4, model, env_params, cfg, tx)
+    r1, ref_losses = chip_smoke._two_iterations(emu, make(), "emulation")
+    ref_update = chip_smoke._flat(r1.params) - p0
+    gates = {}
+    for name, fn_kw in (("sound", {}), ("control", {"iteration_fn": per_shard})):
+        fn = shard_train_iteration(mesh, model, env_params, cfg, tx, **fn_kw)
+        r, losses = chip_smoke._two_iterations(fn, shard_runner(make(), mesh),
+                                               name)
+        gates[name] = chip_smoke._four_gates(r, losses, ref_losses,
+                                             ref_update, p0)
+    assert all(ok for _, ok in gates["sound"].values()), gates["sound"]
+    assert gates["sound"]["replica spread"][0] == 0.0
+    spread, ok = gates["control"]["replica spread"]
+    assert not ok and spread > 1e3 * chip_smoke.FOUR_REPLICA_TOL, spread

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax import env as env_core
-from gym_futbol_jax.vector import reset_batch, step_batch
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu import env as env_core
+from gym_futbol_tpu.vector import reset_batch, step_batch
 
 P = EnvParams(players_per_team=1, substeps=2, solver_iterations=3,
               max_steps=8)
@@ -54,8 +54,8 @@ class TestMaxTraces:
         assert np.isfinite(float(out.reward))
 
     def test_train_iteration_traces_once(self, key):
-        from gym_futbol_jax.models.policy import ActorCritic
-        from gym_futbol_jax.ppo import (
+        from gym_futbol_tpu.models.policy import ActorCritic
+        from gym_futbol_tpu.ppo import (
             PPOConfig, init_runner, make_optimizer, train_iteration,
         )
 

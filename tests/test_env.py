@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax import EnvParams, FutbolEnv, obs_size, reset, step
+from gym_futbol_tpu import EnvParams, FutbolEnv, obs_size, reset, step
 
 
 P = EnvParams(players_per_team=2)

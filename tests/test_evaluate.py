@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import EnvParams, observe, reset
-from gym_futbol_jax.evaluate import evaluate, mirror_obs, random_team_policy
+from gym_futbol_tpu import EnvParams, observe, reset
+from gym_futbol_tpu.evaluate import evaluate, mirror_obs, random_team_policy
 
 
 P = EnvParams(players_per_team=2)
@@ -71,8 +71,8 @@ class TestMirrorSemantics:
         import jax.numpy as jnp
         import numpy as np
 
-        from gym_futbol_jax import EnvParams, env as env_core
-        from gym_futbol_jax.evaluate import mirror_obs
+        from gym_futbol_tpu import EnvParams, env as env_core
+        from gym_futbol_tpu.evaluate import mirror_obs
 
         params = EnvParams(players_per_team=2)
         state, obs = env_core.reset(key, params)

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import game
-from gym_futbol_jax.types import EnvParams
+from gym_futbol_tpu import game
+from gym_futbol_tpu.types import EnvParams
 
 
 P = EnvParams(players_per_team=2)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax.models.policy import N_CHOICES, ActorCritic
-from gym_futbol_jax.models.recurrent import RecurrentActorCritic
+from gym_futbol_tpu.models.policy import N_CHOICES, ActorCritic
+from gym_futbol_tpu.models.recurrent import RecurrentActorCritic
 
 nn = pytest.importorskip("flax.linen")
 

@@ -15,23 +15,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax import env as env_core
-from gym_futbol_jax.ops import (
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu import env as env_core
+from gym_futbol_tpu.ops import (
     fused_rollout,
     fused_rollout_replay,
     pack_state,
     replay_actions,
     unpack_state,
 )
-from gym_futbol_jax.ops.fused_rollout import (
+from gym_futbol_tpu.ops.fused_rollout import (
     DEFAULT_BLOCK,
     env_keys,
     normal_from,
     randint5_from,
     uniform01,
 )
-from gym_futbol_jax.vector import STATE_AXES, random_policy, reset_batch, rollout
+from gym_futbol_tpu.vector import STATE_AXES, random_policy, reset_batch, rollout
 
 # Zero noise => both paths deterministic given actions. max_steps small so
 # the rollout crosses auto-reset boundaries.
@@ -103,7 +103,7 @@ class TestReplayEquivalence:
         the kernel (interpret): a constant baked into the KERNEL path
         instead of read from EnvParams passes every default-params replay
         test and fails exactly here."""
-        from gym_futbol_jax import RewardConfig
+        from gym_futbol_tpu import RewardConfig
 
         p = EnvParams(
             players_per_team=2, kick_noise=0.0, placement_noise=0.0,
@@ -281,7 +281,7 @@ class TestCounterRandomMode:
     def test_sharded_streams_decorrelated(self):
         """shard_fused_rollout gives each shard its global env indices;
         shards holding identical states must diverge."""
-        from gym_futbol_jax.parallel import make_mesh, shard_fused_rollout
+        from gym_futbol_tpu.parallel import make_mesh, shard_fused_rollout
 
         mesh = make_mesh()
         n_dev = len(mesh.devices.flat)
@@ -306,7 +306,7 @@ class TestShardedFused:
         computes the same trajectory as the unsharded kernel."""
         from jax.sharding import PartitionSpec as Spec
 
-        from gym_futbol_jax.parallel import make_mesh
+        from gym_futbol_tpu.parallel import make_mesh
 
         state, actions = setup
         mesh = make_mesh()

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax.physics import (
+from gym_futbol_tpu.physics import (
     circle_pairs,
     integrate_velocity,
     physics_step,
     solve_contacts,
 )
-from gym_futbol_jax.types import EnvParams, body_masses
+from gym_futbol_tpu.types import EnvParams, body_masses
 
 
 def make_params(**kw):
@@ -65,7 +65,7 @@ class TestContacts:
         )
         dtype = jnp.float32
         inv_mass = 1.0 / body_masses(p, dtype)
-        from gym_futbol_jax.types import body_elasticities, body_radii
+        from gym_futbol_tpu.types import body_elasticities, body_radii
 
         radii = body_radii(p, dtype)
         elas = body_elasticities(p, dtype)
@@ -84,7 +84,7 @@ class TestContacts:
             players_per_team=1, player_elasticity=0.0, friction=0.0,
             baumgarte=0.0,
         )
-        from gym_futbol_jax.types import body_elasticities, body_radii
+        from gym_futbol_tpu.types import body_elasticities, body_radii
 
         dtype = jnp.float32
         inv_mass = 1.0 / body_masses(p, dtype)
@@ -101,7 +101,7 @@ class TestContacts:
         """Circle-circle impulses are equal/opposite => momentum conserved
         when no walls involved."""
         p = make_params(players_per_team=2, friction=0.3, baumgarte=0.0)
-        from gym_futbol_jax.types import body_elasticities, body_radii
+        from gym_futbol_tpu.types import body_elasticities, body_radii
 
         dtype = jnp.float32
         masses = body_masses(p, dtype)
@@ -121,7 +121,7 @@ class TestContacts:
 
     def test_no_contact_is_identity(self):
         p = make_params(players_per_team=1)
-        from gym_futbol_jax.types import body_elasticities, body_radii
+        from gym_futbol_tpu.types import body_elasticities, body_radii
 
         dtype = jnp.float32
         inv_mass = 1.0 / body_masses(p, dtype)
@@ -136,7 +136,7 @@ class TestWalls:
     def test_wall_bounce(self):
         """Ball into bottom wall reflects with restitution e_ball*e_wall."""
         p = make_params(players_per_team=1, friction=0.0, baumgarte=0.0)
-        from gym_futbol_jax.types import body_elasticities, body_radii
+        from gym_futbol_tpu.types import body_elasticities, body_radii
 
         dtype = jnp.float32
         inv_mass = 1.0 / body_masses(p, dtype)
@@ -153,7 +153,7 @@ class TestWalls:
     def test_ball_passes_through_goal_mouth(self):
         """Side wall inactive for the ball inside the mouth (physics spec 2)."""
         p = make_params(players_per_team=1)
-        from gym_futbol_jax.types import body_elasticities, body_radii
+        from gym_futbol_tpu.types import body_elasticities, body_radii
 
         dtype = jnp.float32
         inv_mass = 1.0 / body_masses(p, dtype)
@@ -170,7 +170,7 @@ class TestWalls:
     def test_player_blocked_at_goal_mouth(self):
         """Players never pass through side walls (physics spec 2)."""
         p = make_params(players_per_team=1, friction=0.0, baumgarte=0.0)
-        from gym_futbol_jax.types import body_elasticities, body_radii
+        from gym_futbol_tpu.types import body_elasticities, body_radii
 
         dtype = jnp.float32
         inv_mass = 1.0 / body_masses(p, dtype)

@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax.models.policy import (
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu.models.policy import (
     ActorCritic,
     action_log_prob_and_entropy,
     init_params,
     sample_actions,
 )
-from gym_futbol_jax.ppo import (
+from gym_futbol_tpu.ppo import (
     PPOConfig,
     Transition,
     _flatten_tm,
@@ -113,7 +113,7 @@ class TestFeatureMajorUpdate:
         )
 
     def test_logp_entropy_rows_matches_packed(self, key):
-        from gym_futbol_jax.models.policy import (
+        from gym_futbol_tpu.models.policy import (
             action_log_prob_and_entropy_packed,
         )
 
@@ -249,7 +249,7 @@ class TestObsNormFolding:
     (update_moments) equals folding the batch itself (update)."""
 
     def test_update_moments_matches_update(self, key):
-        from gym_futbol_jax.wrappers import RunningNorm
+        from gym_futbol_tpu.wrappers import RunningNorm
 
         obs = jax.random.normal(key, (64, 10)) * 2.0 + 3.0
         n0 = RunningNorm.init(10)
@@ -266,7 +266,7 @@ class TestShuffleBlockFallback:
     def test_degrades_to_largest_divisor(self):
         """ADVICE r3 item 2: a buffer divisible by 128 but not by
         shuffle_block must degrade to a chunky divisor, not to block=1."""
-        from gym_futbol_jax.ppo import _shuffle_block_for
+        from gym_futbol_tpu.ppo import _shuffle_block_for
 
         cfg = PPOConfig(shuffle_block=1024, minibatches=4)
         assert _shuffle_block_for(8192, cfg) == 1024
@@ -281,7 +281,7 @@ class TestShuffleBlockFallback:
     def test_update_epochs_on_odd_buffer(self, key):
         """update_epochs stays correct (non-empty minibatches, finite
         loss) on a buffer that triggers the degraded block size."""
-        from gym_futbol_jax.models.policy import init_params
+        from gym_futbol_tpu.models.policy import init_params
 
         p = EnvParams(players_per_team=1)
         cfg = PPOConfig(rollout_steps=3, epochs=1, minibatches=2,

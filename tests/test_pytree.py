@@ -1,4 +1,4 @@
-"""gym_futbol_jax.pytree: frozen dataclasses registered as pytrees."""
+"""gym_futbol_tpu.pytree: frozen dataclasses registered as pytrees."""
 
 import dataclasses
 
@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax import pytree
-from gym_futbol_jax.types import EnvState
+from gym_futbol_tpu import pytree
+from gym_futbol_tpu.types import EnvState
 
 
 @pytree.dataclass
@@ -49,8 +49,8 @@ def test_metadata_is_part_of_structure():
 
 
 def test_env_state_vmaps():
-    from gym_futbol_jax import EnvParams
-    from gym_futbol_jax.vector import reset_batch
+    from gym_futbol_tpu import EnvParams
+    from gym_futbol_tpu.vector import reset_batch
 
     state, _ = reset_batch(jax.random.PRNGKey(0), EnvParams(), 4)
     assert isinstance(state, EnvState) and state.pos.shape == (4, 5, 2)

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax import (
+from gym_futbol_tpu import (
     Ball,
     EnvParams,
     Player,
@@ -71,7 +71,7 @@ class TestEntities:
         assert not bool(t1.has_ball)
 
     def test_views_batched(self, key):
-        from gym_futbol_jax.vector import reset_batch
+        from gym_futbol_tpu.vector import reset_batch
 
         p = EnvParams(players_per_team=3)
         state, _ = reset_batch(key, p, 8)

@@ -4,8 +4,8 @@ import os
 
 import numpy as np
 
-from gym_futbol_jax import EnvParams, FutbolEnv
-from gym_futbol_jax.render import render_episode, render_state, save_video
+from gym_futbol_tpu import EnvParams, FutbolEnv
+from gym_futbol_tpu.render import render_episode, render_state, save_video
 
 P = EnvParams(players_per_team=2, substeps=2, solver_iterations=3, max_steps=20)
 

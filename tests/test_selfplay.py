@@ -10,21 +10,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax import env as env_core
-from gym_futbol_jax.env import mirror_actions, mirror_obs
-from gym_futbol_jax.models.policy import (
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu import env as env_core
+from gym_futbol_tpu.env import mirror_actions, mirror_obs
+from gym_futbol_tpu.models.policy import (
     ActorCritic,
     pack_actions,
     sample_actions,
 )
-from gym_futbol_jax.ppo import (
+from gym_futbol_tpu.ppo import (
     PPOConfig,
     collect_rollout,
     init_runner,
     make_optimizer,
 )
-from gym_futbol_jax.vector import reset_batch, step_batch
+from gym_futbol_tpu.vector import reset_batch, step_batch
 
 P = EnvParams(players_per_team=2, substeps=2, solver_iterations=3,
               max_steps=16)
@@ -179,7 +179,7 @@ class TestSelfPlayCollect:
         """Stored logp must equal the log-prob of the stored (packed)
         actions under the stored obs — for BOTH perspectives (team 1's in
         its mirrored frame)."""
-        from gym_futbol_jax.models.policy import (
+        from gym_futbol_tpu.models.policy import (
             action_log_prob_and_entropy_packed,
         )
 

@@ -7,17 +7,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax.models.policy import ActorCritic
-from gym_futbol_jax.parallel import (
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu.models.policy import ActorCritic
+from gym_futbol_tpu.parallel import (
     env_sharding,
     make_mesh,
     shard_env_state,
     shard_rollout,
     shard_train_iteration,
 )
-from gym_futbol_jax.ppo import PPOConfig, init_runner, make_optimizer
-from gym_futbol_jax.vector import reset_batch
+from gym_futbol_tpu.ppo import PPOConfig, init_runner, make_optimizer
+from gym_futbol_tpu.vector import reset_batch
 
 
 P = EnvParams(players_per_team=2)
@@ -44,7 +44,7 @@ class TestShardedRollout:
     def test_sharded_matches_single_device(self, mesh, key):
         """The sharded rollout must be bitwise-identical in semantics to the
         unsharded one (pure SPMD, no collectives in the env step)."""
-        from gym_futbol_jax.vector import random_policy, rollout
+        from gym_futbol_tpu.vector import random_policy, rollout
 
         n, t = 16, 10
         state, _ = reset_batch(key, P, n)
@@ -93,9 +93,9 @@ class TestShardedTraining:
         replicated across shards, and eval uses frozen stats."""
         import functools
 
-        from gym_futbol_jax.parallel import ppo_runner_specs
-        from gym_futbol_jax.parallel.mesh import ENV_AXIS
-        from gym_futbol_jax.ppo import make_normalized_collect, train_iteration
+        from gym_futbol_tpu.parallel import ppo_runner_specs
+        from gym_futbol_tpu.parallel.mesh import ENV_AXIS
+        from gym_futbol_tpu.ppo import make_normalized_collect, train_iteration
 
         env_params = EnvParams(players_per_team=1, max_steps=32)
         cfg = PPOConfig(rollout_steps=4, epochs=1, minibatches=2)
@@ -132,8 +132,8 @@ class TestShardedTraining:
         assert runner.rew_norm.ret.shape == (n_envs,)
 
         # eval path: frozen stats, no update
-        from gym_futbol_jax.evaluate import evaluate
-        from gym_futbol_jax.models.policy import make_normalized_policy_fn
+        from gym_futbol_tpu.evaluate import evaluate
+        from gym_futbol_tpu.models.policy import make_normalized_policy_fn
 
         count_before = float(runner.obs_norm.count)
         policy = make_normalized_policy_fn(model, runner.params,
@@ -164,7 +164,7 @@ class TestFourDeviceEmulation:
     compares 4 GPUs against."""
 
     def _setup(self):
-        from gym_futbol_jax.parallel import emulate_sharded_iteration
+        from gym_futbol_tpu.parallel import emulate_sharded_iteration
 
         env_params = EnvParams(players_per_team=2, max_steps=16)
         cfg = PPOConfig(rollout_steps=4, epochs=2, minibatches=2,
@@ -177,7 +177,7 @@ class TestFourDeviceEmulation:
         return env_params, cfg, model, tx, make, emu
 
     def test_emulation_matches_sharded_iteration(self):
-        from gym_futbol_jax.parallel import shard_runner
+        from gym_futbol_tpu.parallel import shard_runner
 
         env_params, cfg, model, tx, make, emu = self._setup()
         mesh = make_mesh(jax.devices()[:4])
@@ -196,7 +196,7 @@ class TestFourDeviceEmulation:
 
     @pytest.mark.parametrize("n_dev", [1, 4])
     def test_placed_runner_compiles_once(self, n_dev):
-        from gym_futbol_jax.parallel import shard_runner
+        from gym_futbol_tpu.parallel import shard_runner
 
         env_params, cfg, model, tx, make, _ = self._setup()
         mesh = make_mesh(jax.devices()[:n_dev])

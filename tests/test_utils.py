@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax.models.policy import ActorCritic
-from gym_futbol_jax.ppo import PPOConfig, init_runner, make_optimizer
-from gym_futbol_jax.utils.checkpoint import Checkpointer
-from gym_futbol_jax.utils.metrics import MetricsLogger
-from gym_futbol_jax.utils.profiling import cost_analysis, timed
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu.models.policy import ActorCritic
+from gym_futbol_tpu.ppo import PPOConfig, init_runner, make_optimizer
+from gym_futbol_tpu.utils.checkpoint import Checkpointer
+from gym_futbol_tpu.utils.metrics import MetricsLogger
+from gym_futbol_tpu.utils.profiling import cost_analysis, timed
 
 
 class TestCheckpoint:
@@ -87,7 +87,7 @@ class TestCheckpointFidelity:
         )
 
     def test_ppo_normalized_resume_bitwise(self, key, tmp_path):
-        from gym_futbol_jax.ppo import (
+        from gym_futbol_tpu.ppo import (
             make_normalized_collect, train_iteration,
         )
 
@@ -126,8 +126,8 @@ class TestCheckpointFidelity:
         self._bitwise_equal(jax.device_get(r_b), r_ref_like)
 
     def test_recurrent_resume_bitwise(self, key, tmp_path):
-        from gym_futbol_jax import a2c
-        from gym_futbol_jax.models.recurrent import RecurrentActorCritic
+        from gym_futbol_tpu import a2c
+        from gym_futbol_tpu.models.recurrent import RecurrentActorCritic
 
         p = EnvParams(players_per_team=1, max_steps=7)
         cfg = a2c.A2CConfig(rollout_steps=3)
@@ -167,7 +167,7 @@ class TestCheckpointFidelity:
 
 class TestCompileCache:
     def test_env_dir_is_honoured(self, monkeypatch, tmp_path):
-        from gym_futbol_jax.utils import cache
+        from gym_futbol_tpu.utils import cache
 
         before = jax.config.jax_compilation_cache_dir
         monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
@@ -176,7 +176,7 @@ class TestCompileCache:
         assert jax.config.jax_compilation_cache_dir == before
 
     def test_default_dir_is_fixed_in_checkout(self, monkeypatch):
-        from gym_futbol_jax.utils import cache
+        from gym_futbol_tpu.utils import cache
 
         monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -195,12 +195,12 @@ def test_main_path_imports_without_flax(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys; sys.modules['flax'] = None\n"
-        "import gym_futbol_jax, gym_futbol_jax.train, gym_futbol_jax.ppo\n"
-        "import gym_futbol_jax.a2c, gym_futbol_jax.recurrent_ppo\n"
-        "import gym_futbol_jax.evaluate, gym_futbol_jax.wrappers\n"
-        "import gym_futbol_jax.models.recurrent, gym_futbol_jax.ops\n"
-        "import gym_futbol_jax.parallel, bench, chip_smoke\n"
-        "from gym_futbol_jax.utils.metrics import MetricsLogger\n"
+        "import gym_futbol_tpu, gym_futbol_tpu.train, gym_futbol_tpu.ppo\n"
+        "import gym_futbol_tpu.a2c, gym_futbol_tpu.recurrent_ppo\n"
+        "import gym_futbol_tpu.evaluate, gym_futbol_tpu.wrappers\n"
+        "import gym_futbol_tpu.models.recurrent, gym_futbol_tpu.ops\n"
+        "import gym_futbol_tpu.parallel, bench, chip_smoke\n"
+        "from gym_futbol_tpu.utils.metrics import MetricsLogger\n"
         f"MetricsLogger({str(tmp_path)!r}).write(0, {{'x': 1}})\n"
         "print('imported')\n"
     )

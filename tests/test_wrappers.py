@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gym_futbol_jax import EnvParams
-from gym_futbol_jax.evaluate import evaluate, joint_policy, mirror_obs, random_team_policy
-from gym_futbol_jax.vector import reset_batch
-from gym_futbol_jax.wrappers import (
+from gym_futbol_tpu import EnvParams
+from gym_futbol_tpu.evaluate import evaluate, joint_policy, mirror_obs, random_team_policy
+from gym_futbol_tpu.vector import reset_batch
+from gym_futbol_tpu.wrappers import (
     EpisodeStats,
     RunningNorm,
     step_normalized,
@@ -89,7 +89,7 @@ class TestEvaluate:
 
 class TestRewardNorm:
     def test_returns_tracked_and_reset(self, key):
-        from gym_futbol_jax.wrappers import RewardNorm
+        from gym_futbol_tpu.wrappers import RewardNorm
 
         rn = RewardNorm.init(3)
         r = jnp.asarray([1.0, 2.0, 3.0])
@@ -103,7 +103,7 @@ class TestRewardNorm:
     def test_normalization_reaches_unit_scale(self, key):
         """After many updates on a fixed-scale reward stream, normalized
         rewards have ~unit return variance (VecNormalize semantics)."""
-        from gym_futbol_jax.wrappers import RewardNorm
+        from gym_futbol_tpu.wrappers import RewardNorm
 
         rng = np.random.RandomState(0)
         rn = RewardNorm.init(64)
@@ -118,7 +118,7 @@ class TestRewardNorm:
         assert float(rn.normalize(jnp.asarray([100.0]))[0]) > 0
 
     def test_step_reward_normalized_runs(self, key):
-        from gym_futbol_jax.wrappers import RewardNorm, step_reward_normalized
+        from gym_futbol_tpu.wrappers import RewardNorm, step_reward_normalized
 
         n = 8
         state, _ = reset_batch(key, P, n)
@@ -138,7 +138,7 @@ class TestShardedNormStats:
 
         from jax.sharding import PartitionSpec as Spec
 
-        from gym_futbol_jax.parallel import make_mesh
+        from gym_futbol_tpu.parallel import make_mesh
 
         obs = jax.random.normal(key, (64, 6)) * 3.0 + 1.0
         ref = RunningNorm.init(6).update(obs)
@@ -168,8 +168,8 @@ class TestShardedNormStats:
 
         from jax.sharding import PartitionSpec as Spec
 
-        from gym_futbol_jax.parallel import make_mesh
-        from gym_futbol_jax.wrappers import RewardNorm
+        from gym_futbol_tpu.parallel import make_mesh
+        from gym_futbol_tpu.wrappers import RewardNorm
 
         r = jax.random.normal(key, (64,)) * 2.0
         done = jnp.zeros((64,), bool)
